@@ -1,0 +1,84 @@
+"""Carry the JAX package's state across to the port.
+
+The JAX package packs an Fp element as 32 int32 limbs of 12 bits,
+little-endian, Montgomery form with R = 2^384, lazily reduced: limbs may
+exceed 12 bits and the value may lie anywhere in [0, ~2^384)
+(``drand_tpu/ops/limb.py:16-22``). The port keeps the same Montgomery
+integer mod p as 12 canonical 32-bit words (``ops/limb.py``). The
+functions here take plain numpy arrays and objects with ``to_bytes()``,
+so this module needs nothing of the JAX package itself.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..crypto.curves import PointG1
+from ..crypto.fields import P
+from ..crypto.poly import PubPoly
+from .limb import NWORDS, int_to_words, words_to_int
+
+JAX_BITS = 12
+JAX_NLIMBS = 32
+
+
+def from_jax_limbs(a) -> torch.Tensor:
+    """(..., 32) int32 JAX limbs (any lazily reduced value) -> (..., 12)
+    int32 canonical words of the same Montgomery value mod p."""
+    arr = np.asarray(a)
+    if arr.shape[-1] != JAX_NLIMBS:
+        raise ValueError(f"trailing axis {arr.shape[-1]}, expected 32")
+    rows = arr.reshape(-1, JAX_NLIMBS).astype(np.int64)
+    out = np.zeros((rows.shape[0], NWORDS), dtype=np.int32)
+    for i, row in enumerate(rows.tolist()):
+        v = sum(int(x) << (JAX_BITS * k) for k, x in enumerate(row))
+        out[i] = int_to_words(v % P)
+    return torch.from_numpy(out.reshape(arr.shape[:-1] + (NWORDS,)))
+
+
+def to_jax_limbs(t: torch.Tensor) -> np.ndarray:
+    """(..., 12) canonical words -> (..., 32) int32 canonical JAX limbs."""
+    arr = t.detach().cpu().numpy()
+    rows = arr.reshape(-1, NWORDS)
+    out = np.zeros((rows.shape[0], JAX_NLIMBS), dtype=np.int32)
+    mask = (1 << JAX_BITS) - 1
+    for i, row in enumerate(rows):
+        v = words_to_int(row)
+        out[i] = [(v >> (JAX_BITS * k)) & mask for k in range(JAX_NLIMBS)]
+    return out.reshape(arr.shape[:-1] + (JAX_NLIMBS,))
+
+
+def _lead(x) -> torch.Tensor:
+    """A batch-last JAX array (..., 32, B) -> port words (B, ..., 12)."""
+    return from_jax_limbs(np.moveaxis(np.asarray(x), -1, 0))
+
+
+def verify_inputs_from_jax(xp, yp, q):
+    """``pallas_pairing.pack_verify_inputs`` output — xp, yp (2, 32, B),
+    q (2, 2, 2, 32, B) — as the port's kernel inputs xp, yp (B, 2, 12)
+    and q (B, 2, 2, 2, 12)."""
+    return _lead(xp), _lead(yp), _lead(q)
+
+
+def f12_from_jax(f) -> torch.Tensor:
+    """A batch-last JAX Fp12 (2, 3, 2, 32, B) -> (B, 2, 3, 2, 12)."""
+    return _lead(f)
+
+
+def engine_batch_from_jax(pub_aff, sig_aff, msg_aff):
+    """The JAX engine's packed bucket (``ops/engine.py:786-788``): pub
+    (B, 2, 32), sig/msg (B, 2, 2, 32) -> the port's (B, 2, 12) and
+    (B, 2, 2, 12) words, as ``ops.pairing.verify_prepared`` takes them."""
+    return (from_jax_limbs(pub_aff), from_jax_limbs(sig_aff),
+            from_jax_limbs(msg_aff))
+
+
+def g1_from_jax(point) -> PointG1:
+    """A G1 point of the JAX package (a group public key) -> the port's."""
+    return PointG1.from_bytes(point.to_bytes())
+
+
+def pub_poly_from_jax(pub_poly) -> PubPoly:
+    """A ``PubPoly`` of the JAX package -> the port's, commit by commit."""
+    return PubPoly([g1_from_jax(c) for c in pub_poly.commits])
