@@ -69,6 +69,20 @@ struct Consts {
 
 FP_CONST Consts C;
 
+#if defined(__CUDACC__)
+#include <cuda_runtime.h>
+
+// Copy the constant buffer (built by ops/pairing.py:kernel_consts) into
+// this library's constant memory, on the launch's stream.
+static cudaError_t load_consts(const void* consts, int n_words,
+                               cudaStream_t stream) {
+  if (n_words * sizeof(uint32_t) != sizeof(Consts))
+    return cudaErrorInvalidValue;
+  return cudaMemcpyToSymbolAsync(C, consts, sizeof(Consts), 0,
+                                 cudaMemcpyDeviceToDevice, stream);
+}
+#endif
+
 // ---------------------------------------------------------------------------
 // Fp
 // ---------------------------------------------------------------------------

@@ -303,14 +303,6 @@ final_exp_verdict_kernel(const uint32_t* __restrict__ f,
   ok[lane] = one ? 1 : 0;
 }
 
-static cudaError_t load_consts(const void* consts, int n_words,
-                               cudaStream_t stream) {
-  if (n_words * sizeof(uint32_t) != sizeof(Consts))
-    return cudaErrorInvalidValue;
-  return cudaMemcpyToSymbolAsync(C, consts, sizeof(Consts), 0,
-                                 cudaMemcpyDeviceToDevice, stream);
-}
-
 static dim3 grid_for(int n) {
   return dim3((n + LANES_PER_BLOCK - 1) / LANES_PER_BLOCK);
 }

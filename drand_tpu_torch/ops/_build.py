@@ -7,8 +7,9 @@ compile cache): each ``csrc/<name>.cu`` is compiled by nvcc for
 fresh checkout builds everything the first time a kernel is launched and
 reuses the library while the sources are unchanged.
 
-Every C entry point returns ``cudaGetLastError()``; the wrappers in
-``ops/pairing.py`` raise when it is not zero.
+Every launching C entry point returns ``cudaGetLastError()``; the
+wrappers in ``ops/pairing.py``, ``ops/msm.py`` and ``ops/eval.py`` raise
+when it is not zero.
 """
 
 from __future__ import annotations
@@ -33,6 +34,14 @@ _ENTRY_POINTS = {
     "pairing": {
         "miller_loop_launch": ["p", "i", "p", "p", "p", "p", "i", "p"],
         "final_exp_verdict_launch": ["p", "i", "p", "p", "p", "i", "p"],
+    },
+    "msm": {
+        "msm_scratch_words": ["i"],
+        "msm_launch": ["p", "i", "p", "p", "p", "i", "p", "i", "p", "i", "p"],
+    },
+    "eval": {
+        "eval_horner_launch": ["p", "i", "p", "i", "p", "i", "i", "p", "p",
+                               "i", "p"],
     },
 }
 
@@ -88,36 +97,50 @@ def parse_ptxas(log: str) -> dict:
     return out
 
 
-def _compile(name: str) -> tuple[Path, dict]:
+def _paths(name: str) -> tuple[Path, Path]:
     out_dir = BUILD_DIR / _source_hash(name)
-    lib = out_dir / f"lib{name}.so"
-    log = out_dir / f"{name}.ptxas.log"
-    if not lib.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
+    return out_dir / f"lib{name}.so", out_dir / f"{name}.ptxas.log"
+
+
+def _start(name: str):
+    """Start nvcc for ``csrc/<name>.cu`` unless its library is built;
+    returns (process, temp path, its output file, start time) or None."""
+    lib, _ = _paths(name)
+    if lib.exists():
+        return None
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.parent / f".lib{name}.{os.getpid()}.so"
+    err = open(lib.parent / f".{name}.{os.getpid()}.err", "w+")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=err, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, err, time.perf_counter()
+
+
+def _finish(name: str, started) -> dict:
+    """Wait for a build started by ``_start``; returns its info."""
+    lib, log = _paths(name)
+    if started is not None:
+        proc, tmp, err_file, t0 = started
+        proc.wait()
         seconds = time.perf_counter() - t0
+        with err_file:
+            err_file.seek(0)
+            err = err_file.read()
+        os.unlink(err_file.name)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-        log.write_text(f"# build_seconds {seconds:.3f}\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{err}")
+        log.write_text(f"# build_seconds {seconds:.3f}\n{err}")
         os.replace(tmp, lib)
     text = log.read_text()
     m = re.match(r"# build_seconds ([0-9.]+)", text)
-    info = {"library": str(lib), "build_seconds": float(m.group(1)) if m else None,
+    return {"library": str(lib),
+            "build_seconds": float(m.group(1)) if m else None,
             "kernels": parse_ptxas(text)}
-    return lib, info
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    path, info = _compile(name)
-    lib = ctypes.CDLL(str(path))
+def _load(name: str, info: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(info["library"])
     for fn, args in _ENTRY_POINTS[name].items():
         f = getattr(lib, fn)
         f.argtypes = [ctypes.c_void_p if a == "p" else ctypes.c_int
@@ -128,9 +151,20 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    return _load(name, _finish(name, _start(name)))
+
+
 def build_all() -> dict:
-    """Build every library; returns {name: info} with the build time and
-    ptxas's registers and spills per kernel."""
-    for name in _ENTRY_POINTS:
-        library(name)
+    """Build every library, one nvcc per source, all started together;
+    returns {name: info} with the build time and ptxas's registers and
+    spills per kernel."""
+    todo = [n for n in _ENTRY_POINTS if n not in _LIBS]
+    started = {n: _start(n) for n in todo}
+    for n in todo:
+        _load(n, _finish(n, started[n]))
     return dict(_INFO)

@@ -82,3 +82,37 @@ def g1_from_jax(point) -> PointG1:
 def pub_poly_from_jax(pub_poly) -> PubPoly:
     """A ``PubPoly`` of the JAX package -> the port's, commit by commit."""
     return PubPoly([g1_from_jax(c) for c in pub_poly.commits])
+
+
+def msm_inputs_from_jax(pts, inf, bits):
+    """The JAX engine's MSM packing (``BatchedEngine._pack_msm_gls4`` and
+    the full-width packing of ``recover``): pts (b, 2, 2, 32) limbs, inf
+    (b,) bool (True = lane left out), bits (b, nbits) — as the inputs of
+    the port's ``ops.msm.msm``: pts (b, 2, 2, 12) words, mask (b,) int32,
+    bits (b, nbits) int32."""
+    return (from_jax_limbs(pts),
+            torch.from_numpy(np.asarray(inf).astype(np.int32)),
+            torch.from_numpy(np.ascontiguousarray(bits, dtype=np.int32)))
+
+
+def eval_inputs_from_jax(xs, ys, bits):
+    """The JAX engine's Horner inputs: commitment limbs xs, ys (t, b, 32)
+    and the index bits, shared (nbits,) (``eval_commits``) or per lane
+    (b, nbits) (``eval_poly_indices``) — as the port's ``ops.eval.horner``
+    inputs: commits (t, b, 2, 12) words and per-lane bits (b, nbits)."""
+    commits = torch.stack([from_jax_limbs(xs), from_jax_limbs(ys)], dim=2)
+    bits = np.asarray(bits, dtype=np.int32)
+    if bits.ndim == 1:
+        bits = np.broadcast_to(bits, (commits.shape[1], bits.shape[0]))
+    return (commits.contiguous(),
+            torch.from_numpy(np.ascontiguousarray(bits)))
+
+
+def eval_rows_to_jax(xyz, inf) -> np.ndarray:
+    """The port's Horner output, xyz (b, 3, 12) words and inf (b,), as the
+    JAX engine's packed Jacobian eval rows (b, 3·32 + 1) that its
+    ``BatchedEngine._unpack_eval_host`` reads."""
+    xyz = torch.as_tensor(xyz)
+    limbs = to_jax_limbs(xyz).reshape(xyz.shape[0], 3 * JAX_NLIMBS)
+    flags = np.asarray(inf).astype(np.int32)[:, None]
+    return np.concatenate([limbs, flags], axis=1)

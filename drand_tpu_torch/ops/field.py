@@ -20,8 +20,8 @@ any device; the tests run them on the CPU, and the chip smoke runs them
 on the card to hold the CUDA kernels against.
 
 Per call, the Fp products of a tower level are stacked into ONE
-``mont_mul`` so the Python-level op count stays per level, not per Fp
-product.
+``mont_mul``, and its independent additions into one carry pass, so the
+Python-level op count stays per level, not per Fp operation.
 """
 
 from __future__ import annotations
@@ -157,14 +157,29 @@ def mont_sqr(a):
 
 
 def add(a, b):
-    s, _ = _norm(a + b)
-    return _csub(s)
+    """a + b mod p: a + b and a + b − p are normalised in one stacked
+    carry pass; the second is kept unless it is negative."""
+    s = a + b
+    r, top = _norm(torch.stack([s, s - _c("P", s.device)]))
+    return torch.where((top[1] < 0)[..., None], r[0], r[1])
 
 
 def sub(a, b):
-    d, top = _norm(a - b)
-    e, _ = _norm(d + _c("P", d.device))   # the carry out is the 2^384 wrap
-    return torch.where((top < 0)[..., None], e, d)
+    """a − b mod p: a − b and a − b + p normalised together; the first
+    is kept unless it is negative."""
+    d = a - b
+    r, top = _norm(torch.stack([d, d + _c("P", d.device)]))
+    return torch.where((top[0] < 0)[..., None], r[1], r[0])
+
+
+def add_sub(a, b):
+    """(a + b, a − b) mod p, all four candidates normalised together."""
+    pc = _c("P", a.device)
+    sm, df = a + b, a - b
+    r, top = _norm(torch.stack(torch.broadcast_tensors(
+        sm, sm - pc, df, df + pc)))
+    return (torch.where((top[1] < 0)[..., None], r[0], r[1]),
+            torch.where((top[2] < 0)[..., None], r[3], r[2]))
 
 
 def neg(a):
@@ -205,19 +220,19 @@ def f2(c0, c1):
 
 def f2_mul(a, b):
     """Karatsuba: 3 Fp products in one stacked mont_mul."""
-    a0, a1 = a[..., 0, :], a[..., 1, :]
-    b0, b1 = b[..., 0, :], b[..., 1, :]
-    pa = torch.stack(torch.broadcast_tensors(a0, a1, add(a0, a1)), dim=-2)
-    pb = torch.stack(torch.broadcast_tensors(b0, b1, add(b0, b1)), dim=-2)
-    v = mont_mul(pa, pb)
-    v0, v1, v2 = v[..., 0, :], v[..., 1, :], v[..., 2, :]
-    return f2(sub(v0, v1), sub(v2, add(v0, v1)))
+    a0, a1, b0, b1 = torch.broadcast_tensors(
+        a[..., 0, :], a[..., 1, :], b[..., 0, :], b[..., 1, :])
+    sa, sb = add(torch.stack([a0, b0]), torch.stack([a1, b1])).unbind(0)
+    v = mont_mul(torch.stack([a0, a1, sa], dim=-2),
+                 torch.stack([b0, b1, sb], dim=-2))
+    s01, d01 = add_sub(v[..., 0, :], v[..., 1, :])
+    return f2(d01, sub(v[..., 2, :], s01))
 
 
 def f2_sqr(a):
     a0, a1 = a[..., 0, :], a[..., 1, :]
-    v = mont_mul(torch.stack([add(a0, a1), a0], dim=-2),
-                 torch.stack([sub(a0, a1), a1], dim=-2))
+    s, d = add_sub(a0, a1)
+    v = mont_mul(torch.stack([s, a0], dim=-2), torch.stack([d, a1], dim=-2))
     return f2(v[..., 0, :], add(v[..., 1, :], v[..., 1, :]))
 
 
@@ -231,8 +246,8 @@ def f2_conj(a):
 
 
 def f2_mul_by_xi(a):
-    a0, a1 = a[..., 0, :], a[..., 1, :]
-    return f2(sub(a0, a1), add(a0, a1))
+    s, d = add_sub(a[..., 0, :], a[..., 1, :])
+    return f2(d, s)
 
 
 def f2_inv(a):
@@ -251,20 +266,21 @@ def f6(c0, c1, c2):
 
 
 def f6_mul(a, b):
-    """Karatsuba over Fp2: 6 Fp2 products in one stacked f2_mul."""
-    a0, a1, a2 = a[..., 0, :, :], a[..., 1, :, :], a[..., 2, :, :]
-    b0, b1, b2 = b[..., 0, :, :], b[..., 1, :, :], b[..., 2, :, :]
-    pa = torch.stack(torch.broadcast_tensors(
-        a0, a1, a2, add(a1, a2), add(a0, a1), add(a0, a2)), dim=-3)
-    pb = torch.stack(torch.broadcast_tensors(
-        b0, b1, b2, add(b1, b2), add(b0, b1), add(b0, b2)), dim=-3)
-    v = f2_mul(pa, pb)
+    """Karatsuba over Fp2: 6 Fp2 products in one stacked f2_mul; the
+    additions of each step are stacked into one call too."""
+    a0, a1, a2, b0, b1, b2 = torch.broadcast_tensors(
+        a[..., 0, :, :], a[..., 1, :, :], a[..., 2, :, :],
+        b[..., 0, :, :], b[..., 1, :, :], b[..., 2, :, :])
+    s = add(torch.stack([a1, a0, a0, b1, b0, b0]),
+            torch.stack([a2, a1, a2, b2, b1, b2]))
+    v = f2_mul(torch.stack([a0, a1, a2, s[0], s[1], s[2]], dim=-3),
+               torch.stack([b0, b1, b2, s[3], s[4], s[5]], dim=-3))
     v0, v1, v2 = v[..., 0, :, :], v[..., 1, :, :], v[..., 2, :, :]
-    m12, m01, m02 = v[..., 3, :, :], v[..., 4, :, :], v[..., 5, :, :]
-    c0 = add(v0, f2_mul_by_xi(sub(m12, add(v1, v2))))
-    c1 = add(sub(m01, add(v0, v1)), f2_mul_by_xi(v2))
-    c2 = add(sub(m02, add(v0, v2)), v1)
-    return f6(c0, c1, c2)
+    m = v[..., 3:, :, :].movedim(-3, 0)          # m12, m01, m02
+    d = sub(m, add(torch.stack([v1, v0, v0]), torch.stack([v2, v1, v2])))
+    x = f2_mul_by_xi(torch.stack([d[0], v2]))
+    c = add(torch.stack([v0, d[1], d[2]]), torch.stack([x[0], x[1], v1]))
+    return f6(c[0], c[1], c[2])
 
 
 def f6_sqr(a):
@@ -305,23 +321,27 @@ def f12_one(shape, device) -> torch.Tensor:
 
 def f12_mul(a, b):
     """Karatsuba over Fp6: 3 Fp6 products in one stacked f6_mul."""
-    a0, a1 = a[..., 0, :, :, :], a[..., 1, :, :, :]
-    b0, b1 = b[..., 0, :, :, :], b[..., 1, :, :, :]
-    pa = torch.stack(torch.broadcast_tensors(a0, a1, add(a0, a1)), dim=-4)
-    pb = torch.stack(torch.broadcast_tensors(b0, b1, add(b0, b1)), dim=-4)
-    v = f6_mul(pa, pb)
+    a0, a1, b0, b1 = torch.broadcast_tensors(
+        a[..., 0, :, :, :], a[..., 1, :, :, :],
+        b[..., 0, :, :, :], b[..., 1, :, :, :])
+    sa, sb = add(torch.stack([a0, b0]), torch.stack([a1, b1])).unbind(0)
+    v = f6_mul(torch.stack([a0, a1, sa], dim=-4),
+               torch.stack([b0, b1, sb], dim=-4))
     v0, v1, v2 = v[..., 0, :, :, :], v[..., 1, :, :, :], v[..., 2, :, :, :]
-    return f12(add(v0, f6_mul_by_v(v1)), sub(v2, add(v0, v1)))
+    c0, s01 = add(torch.stack([v0, v0]),
+                  torch.stack([f6_mul_by_v(v1), v1])).unbind(0)
+    return f12(c0, sub(v2, s01))
 
 
 def f12_sqr(a):
     """Complex squaring: c0 = (a0+a1)(a0+v·a1) − v0 − v·v0, c1 = 2·v0."""
     a0, a1 = a[..., 0, :, :, :], a[..., 1, :, :, :]
-    v = f6_mul(torch.stack([a0, add(a0, a1)], dim=-4),
-               torch.stack([a1, add(a0, f6_mul_by_v(a1))], dim=-4))
+    s = add(torch.stack([a0, a0]), torch.stack([a1, f6_mul_by_v(a1)]))
+    v = f6_mul(torch.stack([a0, s[0]], dim=-4),
+               torch.stack([a1, s[1]], dim=-4))
     v0, w = v[..., 0, :, :, :], v[..., 1, :, :, :]
-    c0 = sub(w, add(v0, f6_mul_by_v(v0)))
-    return f12(c0, add(v0, v0))
+    t = add(torch.stack([v0, v0]), torch.stack([f6_mul_by_v(v0), v0]))
+    return f12(sub(w, t[0]), t[1])
 
 
 def f12_conj(a):
@@ -357,20 +377,18 @@ def f12_cyclotomic_sqr(a):
     x = torch.stack([g[0], g[1], g[2]], dim=-3)
     y = torch.stack([g[3], g[4], g[5]], dim=-3)
     t0, t1, s = f2_sqr(torch.stack([x, y, add(x, y)], dim=-4)).unbind(-4)
-    lo = add(t0, f2_mul_by_xi(t1))            # (a0, b0, c0)
-    hi = sub(s, add(t0, t1))                  # (a1, b1, c1)
-    a0, b0, c0 = lo.unbind(-3)
-    a1, b1, c1 = hi.unbind(-3)
-
-    def fmi(goal, t):   # 3t - 2·goal
-        return add(mul_small(sub(t, goal), 2), t)
-
-    def gpl(goal, t):   # 3t + 2·goal
-        return add(mul_small(add(t, goal), 2), t)
-
-    h = [fmi(g[0], a0), gpl(g[1], f2_mul_by_xi(c1)), fmi(g[2], b0),
-         gpl(g[3], a1), fmi(g[4], c0), gpl(g[5], b1)]
-    return f12_from_w(torch.stack(h, dim=-3))
+    lo, t01 = add(torch.stack([t0, t0]),
+                  torch.stack([f2_mul_by_xi(t1), t1])).unbind(0)
+    a0, b0, c0 = lo.unbind(-3)                # lo = t0 + ξ·t1
+    a1, b1, c1 = sub(s, t01).unbind(-3)       # hi = s − t0 − t1
+    # h_k = 3·t_k − 2·g_k for even k (fmi), 3·t_k + 2·g_k for odd k (gpl)
+    t_f = torch.stack([a0, b0, c0])           # k = 0, 2, 4
+    t_g = torch.stack([f2_mul_by_xi(c1), a1, b1])   # k = 1, 3, 5
+    u = torch.cat([sub(t_f, torch.stack([g[0], g[2], g[4]])),
+                   add(t_g, torch.stack([g[1], g[3], g[5]]))])
+    h = add(add(u, u), torch.cat([t_f, t_g]))
+    return f12_from_w(torch.stack([h[0], h[3], h[1], h[4], h[2], h[5]],
+                                  dim=-3))
 
 
 def f12_inv(a):

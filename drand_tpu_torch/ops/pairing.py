@@ -99,23 +99,27 @@ def _consts_on(device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _dbl_step(T, xp, yp):
-    """Jacobian doubling + line (c0, c3, c5): pallas_pairing._dbl_step."""
+    """Jacobian doubling + line (c0, c3, c5): pallas_pairing._dbl_step.
+    The same products and squares as the kernel's dbl_step, grouped by
+    dependency level into stacked calls."""
     X, Y, Z = T
     X2, Y2, Z2 = fd.f2_sqr(torch.stack([X, Y, Z])).unbind(0)
-    Z3 = fd.f2_mul(Z2, Z)
-    YZ3 = fd.f2_mul(Y, Z3)
-    lam_s = fd.mul_small(fd.f2_mul(X2, Z2), 3)
-    c0 = fd.f2_mul_by_xi(fd.f2_mul_fp(fd.mul_small(YZ3, 2), yp))
-    c5 = fd.neg(fd.f2_mul_fp(lam_s, xp))
-    X3cu = fd.f2_mul(X2, X)
-    c3 = fd.sub(fd.mul_small(X3cu, 3), fd.mul_small(Y2, 2))
-    C = fd.f2_sqr(Y2)
-    D = fd.mul_small(fd.sub(fd.f2_sqr(fd.add(X, Y2)), fd.add(X2, C)), 2)
+    Z3, X2Z2, X3cu, YZ = fd.f2_mul(torch.stack([Z2, X2, X2, Y]),
+                                   torch.stack([Z, Z2, X, Z])).unbind(0)
     E = fd.mul_small(X2, 3)
-    F = fd.f2_sqr(E)
+    C, S, F = fd.f2_sqr(torch.stack([Y2, fd.add(X, Y2), E])).unbind(0)
+    lam_s, X3cu3 = fd.mul_small(torch.stack([X2Z2, X3cu]), 3).unbind(0)
+    D = fd.mul_small(fd.sub(S, fd.add(X2, C)), 2)
     Xn = fd.sub(F, fd.mul_small(D, 2))
-    Yn = fd.sub(fd.f2_mul(E, fd.sub(D, Xn)), fd.mul_small(C, 8))
-    Zn = fd.mul_small(fd.f2_mul(Y, Z), 2)
+    YZ3, EDX = fd.f2_mul(torch.stack([Y, E]),
+                         torch.stack([Z3, fd.sub(D, Xn)])).unbind(0)
+    l0, l5 = fd.f2_mul_fp(torch.stack([fd.mul_small(YZ3, 2), lam_s]),
+                          torch.stack([yp, xp])).unbind(0)
+    c0 = fd.f2_mul_by_xi(l0)
+    c5 = fd.neg(l5)
+    c3 = fd.sub(X3cu3, fd.mul_small(Y2, 2))
+    Yn = fd.sub(EDX, fd.mul_small(C, 8))
+    Zn = fd.mul_small(YZ, 2)
     return (Xn, Yn, Zn), (c0, c3, c5)
 
 
