@@ -17,23 +17,35 @@ line each:
                    verdict) at 512 and 128 lanes; the G2 MSM with GLS4
                    digit scalars at 512 lanes and with 255-bit scalars at
                    128 lanes (its own point and scalar on every lane, two
-                   lanes alike so that the fold doubles, masked lanes) and
+                   lanes alike so that the fold doubles, masked lanes)
                    and at the 6-of-10 round's 32 lanes, and on an
                    all-masked input; the G1 Horner at 128 lanes, t = 65,
                    per-lane 11-bit indices, in both output forms, and in
                    the fused round's form (Z = 1) on the inputs of the
-                   67-of-100 and 6-of-10 rounds; with their times and the
-                   time bound of their integer work;
-3. ``catchup``   — ``BatchedEngine.verify_beacons`` over 1024 rounds of a
-                   chained beacon that also carries V2 signatures, under
-                   one 6-of-10 group key, with one V1 and one V2
-                   signature corrupted (four launches of K1 and K2);
-4. ``live_round`` — the League of Entropy round (6 of 10) through
+                   67-of-100 and 6-of-10 rounds; K5 (hash to G2) and K6
+                   (signature decompression) at 512 lanes: the u-values
+                   of 500 messages of the chain, u = 0 and random field
+                   elements; valid signatures with both sort flags, x off
+                   the curve, points of E2 outside G2 and rows the byte
+                   split rejects; 16 lanes of each also against the host;
+                   the MSM at the wire-RLC shape (512 lanes × 128 bits)
+                   and K1/K2 at the combined row's bucket of 4;
+3. ``catchup``   — ``BatchedEngine(wire_prep=False).verify_beacons`` over
+                   the first 256 rounds of a chained beacon that also
+                   carries V2 signatures, under one 6-of-10 group key,
+                   with one V1 and one V2 signature corrupted: host
+                   hashing and decoding, one launch of K1 and K2;
+4. ``catchup_wire`` — the default engine (the wire path) over the whole
+                   1024-round chain: first clean (the wire-RLC tier, one
+                   combined product check), then with one V1 and one V2
+                   signature corrupted (the combined check fails and the
+                   per-item wire path decides);
+5. ``live_round`` — the League of Entropy round (6 of 10) through
                    ``aggregate_round``, once with every partial valid and
                    once with one chosen partial signing another message
                    (the classic tail), each on a fresh ``PubPoly``;
-5. ``threshold_round`` — the same at 67 of 100 (BASELINE config 3);
-6. ``deal_check`` — ``eval_commits`` of 128 dealers' t = 65 commitment
+6. ``threshold_round`` — the same at 67 of 100 (BASELINE config 3);
+7. ``deal_check`` — ``eval_commits`` of 128 dealers' t = 65 commitment
                    polynomials at one node index (BASELINE config 4).
 
 Each path's launches are counted from zero just before it runs, after the
@@ -47,18 +59,19 @@ that line. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
-import multiprocessing
 import os
 import random
 import subprocess
 import sys
 import time
 import traceback
-from concurrent.futures import ProcessPoolExecutor
 
 SEED = 20260
-N_ROUNDS = 1024
+N_ROUNDS = 1024                   # the wire span
+CATCHUP_ROUNDS = 256              # the host-prep span (first rounds)
+HOST_BAD_V2 = 201                 # its corrupted V2 (BAD_V1 lies in it too)
 GROUP_T, GROUP_N = 6, 10          # League of Entropy: threshold 6 of 10
 GROUP_TAG = b"chip-smoke-group"   # seed of the group polynomial
 BAD_V1, BAD_V2 = 137, 801         # beacon indices whose V1 / V2 is corrupted
@@ -71,6 +84,13 @@ BIG_BAD = 10                      # a corrupted partial among the first 67
 DEALERS, DEAL_T = 128, 65         # BASELINE config 4: n = 128 deal check
 DEAL_INDEX = 37                   # the node index the deals are checked at
 MSM_GLS4_LANES, MSM_FULL_LANES = 512, 128
+WIRE_LANES = 512                  # K5 / K6 lanes: the wire span's bucket
+RLC_BITS = 128                    # the wire-RLC scalars
+COMBINED_BUCKET = 4               # the bucket of the combined row
+HOST_LANES = 16                   # lanes of K5 / K6 checked on the host
+EDGE_LANES = 12                   # K5: u = 0 and random u; K6: x off the
+                                  # curve, outside G2, rejected rows
+SPAN_LANES = WIRE_LANES - EDGE_LANES   # lanes from the chain
 HORNER_LANES = 128
 EVAL_BITS = 11
 TIMED_LAUNCHES = 5
@@ -98,7 +118,7 @@ def nvidia_smi() -> str:
 
 
 # ---------------------------------------------------------------------------
-# data generation (pool workers: spawn, plain functions of this module)
+# data generation (signing workers: subprocesses of this module)
 # ---------------------------------------------------------------------------
 
 def _group_secret() -> tuple[int, bytes]:
@@ -130,6 +150,47 @@ def _sign_v2(rounds: list[int]) -> list[bytes]:
     return [bls.sign(secret, cb.message_v2(r)) for r in rounds]
 
 
+def _sign_job(job: dict) -> list:
+    """The signatures of one worker's job, as hex strings."""
+    if job["kind"] == "v1":
+        return [[p.hex(), s.hex()] for p, s in _sign_v1_chain(job["n"])]
+    return [s.hex() for s in _sign_v2(job["rounds"])]
+
+
+_WORKER_CODE = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; "
+                "json.dump(chip_smoke._sign_job(json.loads(sys.argv[2])), "
+                "sys.stdout)")
+
+
+def _run_workers(jobs: list[dict]) -> list:
+    """Run each job in its own Python process, all started together, and
+    return their results in order. Every process is waited for; on a
+    failure or at the time limit the ones still running are killed first."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for job in jobs:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _WORKER_CODE, here, json.dumps(job)],
+                stdout=subprocess.PIPE, text=True))
+        deadline = time.monotonic() + GENERATE_TIMEOUT_S
+        out = []
+        for job, proc in zip(jobs, procs):
+            text, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            if proc.returncode != 0:
+                raise RuntimeError(f"signing worker {job['kind']} exited "
+                                   f"with {proc.returncode}")
+            out.append(json.loads(text))
+        return out
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
 def make_chain(n_rounds: int, workers: int):
     """1024 beacons signed with the group secret (the recovered group
     signature of every round): the V1 chain in one worker, the V2
@@ -139,17 +200,14 @@ def make_chain(n_rounds: int, workers: int):
     rounds = list(range(1, n_rounds + 1))
     n_v2 = max(1, workers - 1)
     chunks = [rounds[i::n_v2] for i in range(n_v2)]
-    ctx = multiprocessing.get_context("spawn")
-    # a worker that dies raises BrokenProcessPool here instead of hanging
-    with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
-        v1 = pool.submit(_sign_v1_chain, n_rounds)
-        v2 = [pool.submit(_sign_v2, c) for c in chunks]
-        v1_sigs = v1.result(timeout=GENERATE_TIMEOUT_S)
-        v2_sigs = {}
-        for c, fut in zip(chunks, v2):
-            v2_sigs.update(zip(c, fut.result(timeout=GENERATE_TIMEOUT_S)))
-    return [Beacon(round=r, previous_sig=v1_sigs[r - 1][0],
-                   signature=v1_sigs[r - 1][1], signature_v2=v2_sigs[r])
+    v1, *v2 = _run_workers([{"kind": "v1", "n": n_rounds}]
+                           + [{"kind": "v2", "rounds": c} for c in chunks])
+    v2_sigs = {}
+    for c, sigs in zip(chunks, v2):
+        v2_sigs.update(zip(c, sigs))
+    return [Beacon(round=r, previous_sig=bytes.fromhex(v1[r - 1][0]),
+                   signature=bytes.fromhex(v1[r - 1][1]),
+                   signature_v2=bytes.fromhex(v2_sigs[r]))
             for r in rounds]
 
 
@@ -159,7 +217,8 @@ def make_chain(n_rounds: int, workers: int):
 
 KERNEL_NAMES = {"pairing": ("miller_loop_kernel", "final_exp_verdict_kernel"),
                 "msm": ("msm_ladder_fold_kernel", "msm_final_kernel"),
-                "eval": ("eval_horner_kernel",)}
+                "eval": ("eval_horner_kernel",),
+                "h2c": ("hash_to_g2_kernel", "decompress_g2_kernel")}
 
 
 def phase_build(state) -> dict:
@@ -303,16 +362,22 @@ def _pairing_kernels(state) -> dict:
     main = _against_plain(pp, field, xp, yp, q)
     xl, yl, ql = xp[:LIVE_BUCKET], yp[:LIVE_BUCKET], q[:LIVE_BUCKET]
     live = _against_plain(pp, field, xl, yl, ql)
+    xc, yc, qc = (t[:COMBINED_BUCKET].contiguous() for t in (xp, yp, q))
+    comb = _against_plain(pp, field, xc, yc, qc)
     f_k, gt_k, ok_k = main["f"], main["gt"], main["ok"]
 
     verdicts_ok = (ok_k.cpu().tolist() == expect
-                   and live["ok"].cpu().tolist() == expect[:LIVE_BUCKET])
+                   and live["ok"].cpu().tolist() == expect[:LIVE_BUCKET]
+                   and comb["ok"].cpu().tolist() == expect[:COMBINED_BUCKET])
     oracle_ok = all(unpack_ints(gt[8]).reshape(-1).tolist() == oracle
                     for gt in (gt_k, live["gt"]))
     k1_ms = _time_ms(lambda: pp.miller_loop(xp, yp, q), TIMED_LAUNCHES)
     k2_ms = _time_ms(lambda: pp.final_exp_verdict(f_k), TIMED_LAUNCHES)
     k1_live_ms = _time_ms(lambda: pp.miller_loop(xl, yl, ql), TIMED_LAUNCHES)
     k2_live_ms = _time_ms(lambda: pp.final_exp_verdict(live["f"]),
+                          TIMED_LAUNCHES)
+    k1_comb_ms = _time_ms(lambda: pp.miller_loop(xc, yc, qc), TIMED_LAUNCHES)
+    k2_comb_ms = _time_ms(lambda: pp.final_exp_verdict(comb["f"]),
                           TIMED_LAUNCHES)
 
     k1_bound, k1_by = _bound_ms(main["k1_products"] * b,
@@ -324,7 +389,8 @@ def _pairing_kernels(state) -> dict:
             "name": "miller_loop_kernel", "route": "cuda",
             "source": "drand_tpu_torch/csrc/pairing.cu",
             "replaces": "drand_tpu/ops/pallas_pairing.py:335",
-            "max_abs_err": max(main["k1_err"], live["k1_err"]),
+            "max_abs_err": max(main["k1_err"], live["k1_err"],
+                               comb["k1_err"]),
             "ms": k1_ms, "plain_ms": main["k1_plain_ms"],
             "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
             "fp_products_per_check": main["k1_products"]},
@@ -332,19 +398,24 @@ def _pairing_kernels(state) -> dict:
             "name": "final_exp_verdict_kernel", "route": "cuda",
             "source": "drand_tpu_torch/csrc/pairing.cu",
             "replaces": "drand_tpu/ops/pallas_pairing.py:376",
-            "max_abs_err": max(main["k2_err"], live["k2_err"]),
+            "max_abs_err": max(main["k2_err"], live["k2_err"],
+                               comb["k2_err"]),
             "ms": k2_ms, "plain_ms": main["k2_plain_ms"],
             "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
             "fp_products_per_check": main["k2_products"]},
     }
-    errs = {f"{k}_at_{n}": r[k] for n, r in ((b, main), (LIVE_BUCKET, live))
+    errs = {f"{k}_at_{n}": r[k] for n, r in ((b, main), (LIVE_BUCKET, live),
+                                             (COMBINED_BUCKET, comb))
             for k in ("k1_err", "k2_err")}
     if any(errs.values()) or not verdicts_ok or not oracle_ok:
         raise RuntimeError(f"kernel mismatch: {errs}, verdicts ok "
                            f"{verdicts_ok}, host oracle GT ok {oracle_ok}")
     live_ms = {"miller_loop": (k1_live_ms, live["k1_plain_ms"]),
                "final_exp_verdict": (k2_live_ms, live["k2_plain_ms"])}
-    return {"batch": b, "live_batch": LIVE_BUCKET, "tolerance": 0,
+    comb_ms = {"miller_loop": (k1_comb_ms, comb["k1_plain_ms"]),
+               "final_exp_verdict": (k2_comb_ms, comb["k2_plain_ms"])}
+    return {"batch": b, "live_batch": LIVE_BUCKET,
+            "combined_batch": COMBINED_BUCKET, "tolerance": 0,
             "errors": errs, "launches": dict(pp.LAUNCHES),
             "verdicts_match_expected": verdicts_ok,
             "gt_matches_host_oracle": oracle_ok,
@@ -353,21 +424,28 @@ def _pairing_kernels(state) -> dict:
                          "ms_at_512": k["ms"], "plain_ms_at_512": k["plain_ms"],
                          "ms_at_128": live_ms[key][0],
                          "plain_ms_at_128": live_ms[key][1],
+                         "ms_at_4": comb_ms[key][0],
+                         "plain_ms_at_4": comb_ms[key][1],
                          "bound_ms": k["bound_ms"],
                          "fp_products_per_check": k["fp_products_per_check"]}
                         for key, k in state["kernels"].items()]}
 
 
 def _launch_counts() -> dict:
-    from drand_tpu_torch.ops import eval as ev, msm, pairing as pp
+    from drand_tpu_torch.ops import eval as ev, msm, pairing as pp, wire
 
-    return {**pp.LAUNCHES, **msm.LAUNCHES, **ev.LAUNCHES}
+    return {**pp.LAUNCHES, **msm.LAUNCHES, **ev.LAUNCHES, **wire.LAUNCHES}
+
+
+def _launches(**counts) -> dict:
+    """Expected launch counts: every kernel, 0 unless given."""
+    return {k: counts.get(k, 0) for k in _launch_counts()}
 
 
 def _reset_launches() -> None:
-    from drand_tpu_torch.ops import eval as ev, msm, pairing as pp
+    from drand_tpu_torch.ops import eval as ev, msm, pairing as pp, wire
 
-    for counts in (pp.LAUNCHES, msm.LAUNCHES, ev.LAUNCHES):
+    for counts in (pp.LAUNCHES, msm.LAUNCHES, ev.LAUNCHES, wire.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -578,6 +656,7 @@ def _curve_kernels(state) -> dict:
     gls4 = _msm_case(dev, rng, MSM_GLS4_LANES, 64, counts)
     full = _msm_case(dev, rng, MSM_FULL_LANES, 255, counts)
     live = _msm_case(dev, rng, msm_lanes(GROUP_T, True), 64, counts)
+    rlc = _msm_case(dev, rng, WIRE_LANES, RLC_BITS, counts)
     gen = _g2_xy(PointG2.generator().to_affine())
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         np.broadcast_to(gen, (32,) + gen.shape), np.ones(32, np.int32),
@@ -589,10 +668,10 @@ def _curve_kernels(state) -> dict:
     horner = _horner_case(state, rng, counts)
     h_big = _horner_round_case(dev, BIG_T, BIG_N, BIG_TAG, counts)
     h_live = _horner_round_case(dev, GROUP_T, GROUP_N, GROUP_TAG, counts)
-    msm_cases = (gls4, full, live, masked)
+    msm_cases = (gls4, full, live, rlc, masked)
     horner_cases = (horner, h_big, h_live)
     # the shapes compared here, which the rounds' launches must have
-    state["msm_shapes"] = {(c["lanes"], c["nbits"]) for c in msm_cases[:3]}
+    state["msm_shapes"] = {(c["lanes"], c["nbits"]) for c in msm_cases[:4]}
     state["fused_horner_shapes"] = {(c["t"], c["lanes"])
                                     for c in (h_big, h_live)}
     state["kernels"]["msm"] = {
@@ -612,12 +691,13 @@ def _curve_kernels(state) -> dict:
         "bound_ms": h_big["bound_ms"], "bound_by": h_big["bound_by"],
         "library_ms": None}
     out = {"tolerance": 0, "msm_gls4": gls4, "msm_full": full,
-           "msm_live_round": live, "msm_all_masked": masked,
+           "msm_live_round": live, "msm_wire_rlc": rlc,
+           "msm_all_masked": masked,
            "horner": horner, "horner_round_67_of_100": h_big,
            "horner_round_6_of_10": h_live, "point_products": counts}
     bad = (state["kernels"]["msm"]["max_abs_err"]
            or state["kernels"]["horner"]["max_abs_err"]
-           or not all(c["host_match"] for c in (gls4, full, live, h_big,
+           or not all(c["host_match"] for c in (gls4, full, live, rlc, h_big,
                                                  h_live))
            or not masked["infinity"]
            or not all(horner[f"host_match_affine_{a}"] for a in (False, True)))
@@ -626,29 +706,322 @@ def _curve_kernels(state) -> dict:
     return out
 
 
+def _chain(state):
+    """The clean N_ROUNDS-round chain, made once for every phase."""
+    if "chain" not in state:
+        t0 = time.perf_counter()
+        state["chain"] = make_chain(N_ROUNDS,
+                                    max(2, min(8, os.cpu_count() or 2)))
+        state["chain_seconds"] = time.perf_counter() - t0
+    return state["chain"]
+
+
+def _corrupt(beacons, bad_v1: int, bad_v2: int):
+    """Copies of ``beacons``: V1 of ``bad_v1`` signs another message, V2 of
+    ``bad_v2`` is the next round's."""
+    from drand_tpu_torch.crypto import bls
+
+    secret, _ = _group_secret()
+    out = [dataclasses.replace(b) for b in beacons]
+    out[bad_v1].signature = bls.sign(secret, b"not-this-round")
+    out[bad_v2].signature_v2 = beacons[bad_v2 + 1].signature_v2
+    return out
+
+
+def _f2_of(w):
+    from drand_tpu_torch.crypto.fields import Fp2
+    from drand_tpu_torch.ops.limb import fp_from_words
+
+    return Fp2(fp_from_words(w[0]), fp_from_words(w[1]))
+
+
+def _products(fn) -> float:
+    """Fp products of one plain call, counted by ops/field.py."""
+    from drand_tpu_torch.ops import field
+
+    field.N_FP_PRODUCTS = 0
+    fn()
+    return field.N_FP_PRODUCTS
+
+
+def _f2_pow_products(e: int, sqr: float, mul: float) -> float:
+    """Fp products of a^e in Fp2 by the cheapest sliding window (widths
+    1-6): the table a^2 and the odd powers up to a^(2^w - 1), then one
+    squaring per exponent bit after the leading window and one product
+    per further window."""
+    bits = bin(e)[2:]
+    best = None
+    for w in range(1, 7):
+        n_sqr, n_mul = (1, 2 ** (w - 1) - 1) if w > 1 else (0, 0)
+        i, first = 0, True
+        while i < len(bits):
+            if bits[i] == "0":
+                n_sqr, i = n_sqr + 1, i + 1
+                continue
+            j = min(i + w, len(bits))
+            while bits[j - 1] == "0":
+                j -= 1
+            if not first:
+                n_sqr, n_mul = n_sqr + j - i, n_mul + 1
+            first, i = False, j
+        cost = n_sqr * sqr + n_mul * mul
+        best = cost if best is None else min(best, cost)
+    return best
+
+
+def _hash_to_g2_needed_products(u) -> dict:
+    """Fp products per lane that hash-to-G2 needs, for K5's bound: two
+    maps by RFC 9380's inversion-free simplified SWU (F.2) with one
+    sqrt_ratio (F.2.1.1, p² ≡ 9 mod 16: c1 = 3) — one exponentiation by
+    (p² − 9)/16 per map — then the 3-isogeny from the projective x = N/D
+    to a Jacobian point, the sum of the two maps, Budroni-Pintore clearing
+    and the final to-affine. Fp2 squarings and products are priced as
+    ``ops/field`` computes them; products by the small constants A' =
+    240i, B' = 1012(1+i) and Z = −(2+i) are additions and cost none. The
+    sum, clearing and to-affine are the plain versions' own counts on one
+    lane (the formulas K5 runs). Every lane needs the same count."""
+    from drand_tpu_torch.crypto.fields import P
+    from drand_tpu_torch.ops import curve as cv, field, h2c
+    from drand_tpu_torch.ops.limb import words_to_halves
+
+    uh = words_to_halves(u[:1])
+    a = uh[:, 0]
+    sqr = _products(lambda: field.f2_sqr(a))
+    mul = _products(lambda: field.f2_mul(a, a))
+    # SSWU straight line: u², (Zu²)², tv3², tv4² and x = tv1·tv3, y =
+    # tv1·u·y1, tv2·tv3, tv6·tv4; sgn0 of u and y: one from-Montgomery
+    # product each
+    sswu = 4 * sqr + 5 * mul + 2
+    # sqrt_ratio around its exponentiation: v^7 (2 sqr, 2 mul), tv2²·v,
+    # u·tv3, four products after the power, tv4^4, the c7 and c6
+    # products, then two rounds of the c1 loop (3 sqr, 4 mul)
+    sqrt_ratio = (8 * sqr + 14 * mul
+                  + _f2_pow_products((P * P - 9) // 16, sqr, mul))
+    # isogeny: e = N − x0·D; X = c2·D·(N·e² + V·e·D² + U·D³), Y = c3·y·D³·
+    # (e³ − V·e·D² − 2U·D³), Z = D·e
+    iso = 2 * sqr + 13 * mul
+    p = h2c.map_to_curve(uh.movedim(1, 0))
+    q0, q1 = (tuple(c[k] for c in p) for k in (0, 1))
+    add = _products(lambda: cv.pt_add(cv.F2, q0, q1))
+    q = cv.pt_add(cv.F2, q0, q1)
+    clear = _products(lambda: cv.clear_cofactor(cv.F2, q))
+    c = cv.clear_cofactor(cv.F2, q)
+    affine = _products(lambda: cv.pt_to_affine(cv.F2, c))
+    per_map = sswu + sqrt_ratio + iso
+    return {"per_map": per_map, "sqrt_ratio": sqrt_ratio, "add": add,
+            "clear_cofactor": clear, "to_affine": affine,
+            "per_lane": 2 * per_map + add + clear + affine}
+
+
+def _k5_case(state, rng) -> dict:
+    """K5 against its plain version on WIRE_LANES lanes — the u-values of
+    the first 500 messages of the chain (V1 and V2), one lane of u = 0
+    (tv = 0 in both maps) and random field elements — word for word on
+    every lane, and HOST_LANES lanes against the host: ``hash_to_g2`` of
+    the message, and the host maps summed and cleared for the u = 0 and
+    a random lane. The bound counts what hash-to-G2 needs
+    (``_hash_to_g2_needed_products``: one exponentiation per map, no
+    inversion but the final one). Beside it, the Fp products K5 performs
+    on this run's lanes: the plain version's count (it takes every
+    branch) less the second square root of each map whose first
+    candidate is a square and the inversion where tv = 0."""
+    import numpy as np
+    import torch
+
+    from drand_tpu_torch.chain import beacon as cb
+    from drand_tpu_torch.crypto.fields import P, Fp2
+    from drand_tpu_torch.crypto.hash_to_curve import (
+        _B_OVER_ZA, _MINUS_B_OVER_A, _H_CLEAR, _Z_SSWU, _g_prime, hash_to_g2,
+        map_to_curve_g2)
+    from drand_tpu_torch.ops import field, h2c, wire
+    from drand_tpu_torch.ops.engine import _g2_from_words
+    from drand_tpu_torch.ops.limb import fp_words, words_to_halves
+
+    dev = state["device"]
+    chain = _chain(state)
+    msgs = []
+    for bcn in chain[:SPAN_LANES // 2]:
+        msgs += [cb.message(bcn.round, bcn.previous_sig),
+                 cb.message_v2(bcn.round)]
+    n_rand = WIRE_LANES - len(msgs) - 1
+    rand = np.array([[[fp_words(rng.randrange(P)), fp_words(rng.randrange(P))]
+                      for _ in range(2)] for _ in range(n_rand)], np.int32)
+    u_np = np.concatenate([h2c.msgs_to_u(msgs),
+                           np.zeros((1, 2, 2, 12), np.int32), rand])
+    u = torch.from_numpy(u_np).to(dev)
+    xy_k, inf_k = wire.hash_to_g2(u)
+    field.N_FP_PRODUCTS = 0
+    (xy_p, inf_p), plain_ms = _time_once_ms(lambda: h2c.hash_to_g2_plain(u))
+    full = field.N_FP_PRODUCTS / WIRE_LANES
+    err = max(_max_abs_err(xy_k, xy_p), _max_abs_err(inf_k, inf_p))
+    zero, rnd = len(msgs), len(msgs) + 1
+    lanes = list(range(HOST_LANES - 2)) + [zero, rnd]
+    xy_h, inf_h = xy_k.cpu().numpy(), inf_k.cpu().numpy()
+    host_ok = True
+    for j in lanes:
+        if j < len(msgs):
+            want = hash_to_g2(msgs[j])
+        else:
+            us = [_f2_of(u_np[j, k]) for k in range(2)]
+            want = (map_to_curve_g2(us[0]) + map_to_curve_g2(us[1])).mul(
+                _H_CLEAR)
+        got = None if inf_h[j] else _g2_from_words(xy_h[j])
+        host_ok &= (got is None) == want.is_infinity() and (
+            got is None or got == want)
+    # what this run's lanes need (see the docstring)
+    one = words_to_halves(u[:1, 0])
+    sqrt_cost = _products(lambda: h2c.sqrt_f2(one))
+    inv_cost = _products(lambda: field.f2_inv(one))
+    skipped = 0
+    for row in u_np:
+        for k in range(2):
+            uk = _f2_of(row[k])
+            zu2 = _Z_SSWU * uk.square()
+            tv = zu2.square() + zu2
+            x1 = _B_OVER_ZA if tv.is_zero() else \
+                _MINUS_B_OVER_A * (Fp2.one() + tv.inverse())
+            skipped += sqrt_cost * _g_prime(x1).is_square()
+            skipped += inv_cost * tv.is_zero()
+    products = full * WIRE_LANES - skipped
+    needed = _hash_to_g2_needed_products(u)
+    bound, by = _bound_ms(needed["per_lane"] * WIRE_LANES,
+                          _nbytes(u, xy_k, inf_k))
+    return {"lanes": WIRE_LANES, "message_lanes": len(msgs),
+            "zero_lanes": 1, "random_lanes": n_rand, "max_abs_err": err,
+            "infinity_lanes": int(inf_k.sum().item()),
+            "host_lanes": len(lanes), "host_match": bool(host_ok),
+            "ms": _time_ms(lambda: wire.hash_to_g2(u), TIMED_LAUNCHES),
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "fp_products_needed_per_lane": needed,
+            "fp_products_per_lane_all_branches": full,
+            "fp_products_per_lane": products / WIRE_LANES}
+
+
+def _k6_case(state, rng) -> dict:
+    """K6 against its plain version on WIRE_LANES lanes — 500 signatures
+    of the chain (both sort flags), x off the curve, points of E2 outside
+    G2 (x with x³ + 4(1+u) a square, not cleared) with both flags, and
+    rows ``sigs_to_x`` rejected (zeros in, zeros out) — word for word on
+    every lane, and HOST_LANES lanes against the host ``decode_sig``.
+    Fp products per lane: the plain count (every lane runs the subgroup
+    check) less that check on lanes whose x is not on the curve."""
+    import numpy as np
+    import torch
+
+    from drand_tpu_torch.crypto.fields import P, Fp2
+    from drand_tpu_torch.ops import curve as cv, field, h2c, wire
+    from drand_tpu_torch.ops.engine import _g2_from_words, decode_sig
+    from drand_tpu_torch.ops.limb import words_to_halves
+
+    dev = state["device"]
+    chain = _chain(state)
+    sigs = []
+    for bcn in chain[:SPAN_LANES // 2]:
+        sigs += [bcn.signature, bcn.signature_v2]
+    b_g2 = Fp2(4, 4)
+
+    def encode(x, flag):
+        out = bytearray(x.to_bytes())
+        out[0] |= 0x80 | (0x20 if flag else 0)
+        return bytes(out)
+
+    off, outside = [], []
+    while len(off) < 4 or len(outside) < 4:
+        x = Fp2(rng.randrange(P), rng.randrange(P))
+        on = (x * x * x + b_g2).is_square()
+        (outside if on else off).append(x)
+    sigs += [encode(x, k % 2) for k, x in enumerate(off[:4])]
+    sigs += [encode(x, k % 2) for k, x in enumerate(outside[:4])]
+    good = sigs[0]
+    sigs += [bytes([good[0] & 0x7F]) + good[1:], bytes([0xC0]) + bytes(95),
+             good[:95], good[:48] + P.to_bytes(48, "big")]
+    xs, sign, valid = h2c.sigs_to_x(sigs)
+    x = torch.from_numpy(xs).to(dev)
+    sg = torch.from_numpy(sign.astype(np.int32)).to(dev)
+    xy_k, ok_k = wire.decompress_g2(x, sg)
+    field.N_FP_PRODUCTS = 0
+    (xy_p, ok_p), plain_ms = _time_once_ms(lambda: h2c.decompress_plain(x, sg))
+    full = field.N_FP_PRODUCTS / WIRE_LANES
+    err = max(_max_abs_err(xy_k, xy_p), _max_abs_err(ok_k, ok_p))
+    lanes = list(range(6)) + [SPAN_LANES + k for k in (0, 1, 2, 4, 5, 6, 8,
+                                                       9, 10, 11)]
+    xy_h, ok_h = xy_k.cpu().numpy(), ok_k.cpu().numpy()
+    host_ok = all(
+        (decode_sig(sigs[j]) is None) == (not (ok_h[j] and valid[j]))
+        and (not (ok_h[j] and valid[j])
+             or _g2_from_words(xy_h[j]) == decode_sig(sigs[j]))
+        for j in lanes)
+    xh = words_to_halves(x[:1])
+    q = (xh, xh, cv.F2.one((1,), dev), torch.zeros(1, dtype=torch.bool,
+                                                     device=dev))
+    sub_cost = _products(lambda: cv.subgroup_check(cv.F2, q))
+    on_curve = [(_f2_of(r) * _f2_of(r) * _f2_of(r) + b_g2).is_square()
+                for r in xs]
+    products = full * WIRE_LANES - sub_cost * on_curve.count(False)
+    bound, by = _bound_ms(products, _nbytes(x, sg, xy_k, ok_k))
+    flags = [bool(s[0] & 0x20) for s in sigs[:SPAN_LANES]]
+    return {"lanes": WIRE_LANES, "signature_lanes": SPAN_LANES,
+            "sort_flags_set": sum(flags), "off_curve": 4,
+            "outside_g2": 4, "rejected_by_byte_split": int((~valid).sum()),
+            "accepted": int(ok_k.sum().item()), "max_abs_err": err,
+            "host_lanes": len(lanes), "host_match": bool(host_ok),
+            "ms": _time_ms(lambda: wire.decompress_g2(x, sg),
+                           TIMED_LAUNCHES),
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "fp_products_per_lane_all_branches": full,
+            "fp_products_per_lane": products / WIRE_LANES}
+
+
+def _wire_kernels(state) -> dict:
+    """K5 and K6 against their plain versions and the host, at the wire
+    span's bucket."""
+    rng = random.Random(SEED + 2)
+    k5, k6 = _k5_case(state, rng), _k6_case(state, rng)
+    for key, name, case, line in (
+            ("hash_to_g2", "hash_to_g2_kernel", k5, 65),
+            ("decompress_g2", "decompress_g2_kernel", k6, 122)):
+        state["kernels"][key] = {
+            "name": name, "route": "cuda",
+            "source": "drand_tpu_torch/csrc/h2c.cu",
+            "replaces": f"drand_tpu/ops/pallas_wire.py:{line}",
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": None}
+    out = {"tolerance": 0, "hash_to_g2": k5, "decompress_g2": k6}
+    if (k5["max_abs_err"] or k6["max_abs_err"] or not k5["host_match"]
+            or not k6["host_match"]
+            or not 0 < k6["sort_flags_set"] < SPAN_LANES):
+        raise RuntimeError(f"wire kernel mismatch: {out}")
+    return out
+
+
 def phase_kernels(state) -> dict:
     pairing = _pairing_kernels(state)
     curve = _curve_kernels(state)
-    return {"pairing": pairing, "curve": curve,
+    wire = _wire_kernels(state)
+    return {"pairing": pairing, "curve": curve, "wire": wire,
             "launches": _launch_counts()}
 
 
-def phase_catchup(state) -> dict:
-    from drand_tpu_torch import metrics
-    from drand_tpu_torch.crypto import bls
+def _group_key():
     from drand_tpu_torch.crypto.poly import PriPoly
+
+    return PriPoly.random(GROUP_T, seed=GROUP_TAG).commit().commit()
+
+
+def phase_catchup(state) -> dict:
+    """The host-prep path: ``BatchedEngine(wire_prep=False)`` over the
+    first CATCHUP_ROUNDS rounds, V1 of BAD_V1 and V2 of HOST_BAD_V2
+    corrupted — host hashing and decoding, one K1/K2 launch."""
+    from drand_tpu_torch import metrics
     from drand_tpu_torch.ops.engine import BatchedEngine
 
-    t0 = time.perf_counter()
-    workers = max(2, min(8, os.cpu_count() or 2))
-    beacons = make_chain(N_ROUNDS, workers)
-    secret, _ = _group_secret()
-    beacons[BAD_V1].signature = bls.sign(secret, b"not-this-round")
-    beacons[BAD_V2].signature_v2 = beacons[BAD_V2 + 1].signature_v2
-    gen_s = time.perf_counter() - t0
-    group_key = PriPoly.random(GROUP_T, seed=GROUP_TAG).commit().commit()
-
-    eng = BatchedEngine(device=state["device"])
+    chain = _chain(state)
+    beacons = _corrupt(chain[:CATCHUP_ROUNDS], BAD_V1, HOST_BAD_V2)
+    eng = BatchedEngine(device=state["device"], wire_prep=False)
+    checks = 2 * CATCHUP_ROUNDS
+    if eng._bucket(checks) != MAIN_BUCKET:
+        raise RuntimeError(f"catchup bucket {eng._bucket(checks)}")
     eng.check_bucket(MAIN_BUCKET)              # gate launches come first
     state["engine"] = eng
     for k in eng.stage_seconds:
@@ -656,7 +1029,7 @@ def phase_catchup(state) -> dict:
     checks0, pairs0 = metrics.N_PRODUCT_CHECKS, metrics.N_MILLER_PAIRS
     _reset_launches()
     t1 = time.perf_counter()
-    verdicts = eng.verify_beacons(group_key, beacons)
+    verdicts = eng.verify_beacons(_group_key(), beacons)
     wall = time.perf_counter() - t1
     launches = _launch_counts()
     d_checks = metrics.N_PRODUCT_CHECKS - checks0
@@ -665,19 +1038,78 @@ def phase_catchup(state) -> dict:
 
     bad = [i for i, v in enumerate(verdicts.tolist()) if not v]
     st = eng.stage_seconds
-    out = {"rounds": N_ROUNDS, "checks": 2 * N_ROUNDS,
-           "generate_seconds": gen_s, "false_at": bad,
+    out = {"rounds": CATCHUP_ROUNDS, "checks": checks,
+           "generate_seconds": state["chain_seconds"], "false_at": bad,
            "meter_deltas": {"product_checks": d_checks, "miller_pairs": d_pairs},
            "launches": launches,
            "host_seconds": {"hash": st["hash"], "decode": st["decode"],
                             "pack": st["pack"]},
            "device_seconds": st["device"], "wall_seconds": wall,
+           "beacons_per_s": CATCHUP_ROUNDS / wall,
            "device_pairs_per_s": d_pairs / st["device"] if st["device"] else None}
-    expect_launches = {"miller_loop": 4, "final_exp_verdict": 4, "msm": 0,
-                       "horner": 0}
-    if bad != [BAD_V1, BAD_V2] or d_checks != 1 or d_pairs != 4 * N_ROUNDS \
-            or launches != expect_launches:
+    expect_launches = _launches(miller_loop=1, final_exp_verdict=1)
+    if bad != [BAD_V1, HOST_BAD_V2] or d_checks != 1 \
+            or d_pairs != 4 * CATCHUP_ROUNDS or launches != expect_launches:
         raise RuntimeError(f"catchup: {out}")
+    return out
+
+
+def phase_catchup_wire(state) -> dict:
+    """The wire path: the default engine over the whole N_ROUNDS-round
+    chain, clean (the wire-RLC tier: one combined product check) and then
+    with V1 of BAD_V1 and V2 of BAD_V2 corrupted (the combined check
+    fails and the per-item wire path decides). The known-answer gates run
+    first; verdicts, meter deltas and launches are checked exactly."""
+    from drand_tpu_torch import metrics
+    from drand_tpu_torch.ops.engine import BatchedEngine
+
+    chain = _chain(state)
+    key = _group_key()
+    eng = BatchedEngine(device=state["device"])
+    checks = 2 * N_ROUNDS
+    if not eng.wire_rlc_active(checks) or eng._bucket(checks) != WIRE_LANES:
+        raise RuntimeError("the span does not take the wire-RLC tier at "
+                           f"bucket {WIRE_LANES}")
+    t0 = time.perf_counter()
+    eng.check_wire(checks)                     # gate launches come first
+    out = {"rounds": N_ROUNDS, "checks": checks,
+           "gate_seconds": time.perf_counter() - t0,
+           "kat": eng.introspect()["kat"]}
+    chunks = checks // WIRE_LANES
+    clean = _launches(miller_loop=1, final_exp_verdict=1, msm=2 * chunks,
+                      hash_to_g2=chunks, decompress_g2=chunks)
+    corrupted = _launches(miller_loop=1 + chunks,
+                          final_exp_verdict=1 + chunks, msm=2 * chunks,
+                          hash_to_g2=2 * chunks, decompress_g2=2 * chunks)
+    for label, beacons, want_false, want_launches, want_meters in (
+            ("clean", chain, [], clean, (1, 2)),
+            ("corrupted", _corrupt(chain, BAD_V1, BAD_V2), [BAD_V1, BAD_V2],
+             corrupted, (2, 2 + 2 * checks))):
+        for k in eng.stage_seconds:
+            eng.stage_seconds[k] = 0.0
+        checks0, pairs0 = metrics.N_PRODUCT_CHECKS, metrics.N_MILLER_PAIRS
+        _reset_launches()
+        t1 = time.perf_counter()
+        verdicts = eng.verify_beacons(key, beacons)
+        wall = time.perf_counter() - t1
+        launches = _launch_counts()
+        meters = (metrics.N_PRODUCT_CHECKS - checks0,
+                  metrics.N_MILLER_PAIRS - pairs0)
+        st = dict(eng.stage_seconds)
+        run = {"false_at": [i for i, v in enumerate(verdicts.tolist())
+                            if not v],
+               "meter_deltas": {"product_checks": meters[0],
+                                "miller_pairs": meters[1]},
+               "launches": launches,
+               "host_seconds": {k: st[k] for k in ("prep", "pack", "hash",
+                                                   "decode")},
+               "device_seconds": st["device"], "wall_seconds": wall,
+               "beacons_per_s": N_ROUNDS / wall}
+        out[label] = run
+        if (run["false_at"] != want_false or launches != want_launches
+                or meters != want_meters):
+            raise RuntimeError(f"catchup_wire {label}: {run}")
+    state["wire_launches"] = out["corrupted"]["launches"]
     return out
 
 
@@ -729,8 +1161,8 @@ def _threshold_rounds(state, t: int, n: int, bad: int, tag: bytes,
             f"kernels checked at {LIVE_BUCKET}, {state['msm_shapes']}, "
             f"{state['fused_horner_shapes']}")
     eng.check_round(n, t)                    # gate launches come first
-    one = {"miller_loop": 1, "final_exp_verdict": 1, "msm": 1, "horner": 1}
-    tail = {"miller_loop": 2, "final_exp_verdict": 2, "msm": 2, "horner": 1}
+    one = _launches(miller_loop=1, final_exp_verdict=1, msm=1, horner=1)
+    tail = _launches(miller_loop=2, final_exp_verdict=2, msm=2, horner=1)
     out = {"threshold": t, "partials": n, "generate_seconds": gen_s,
            "host_recover_seconds": host_recover_s,
            "msm_lanes": eng.agg_shape(n, t)[1],
@@ -802,7 +1234,7 @@ def phase_deal_check(state) -> dict:
            "device_seconds": st["device"], "pack_seconds": st["pack"],
            "host_eval_seconds": host_s, "launches": launches,
            "matches_host": got == expect}
-    want = {"miller_loop": 0, "final_exp_verdict": 0, "msm": 0, "horner": 1}
+    want = _launches(horner=1)
     if got != expect or launches != want:
         raise RuntimeError(f"deal_check: {out}")
     return out
@@ -824,6 +1256,7 @@ def main() -> int:
     failed = []
     for name, phase in (("build", phase_build), ("kernels", phase_kernels),
                         ("catchup", phase_catchup),
+                        ("catchup_wire", phase_catchup_wire),
                         ("live_round", phase_live_round),
                         ("threshold_round", phase_threshold_round),
                         ("deal_check", phase_deal_check)):
@@ -841,12 +1274,14 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
-    # launches on each kernel's own main path: the catch-up span for K1
-    # and K2, the 67-of-100 round (all partials valid) for the MSM and
-    # the Horner
+    # launches on each kernel's own main path: the host-prep catch-up span
+    # for K1 and K2, the 67-of-100 round (all partials valid) for the MSM
+    # and the Horner, the corrupted wire span for K5 and K6
     launches = {**state["main_launches"],
                 **{k: state["threshold_launches"][k] for k in ("msm",
-                                                               "horner")}}
+                                                               "horner")},
+                **{k: state["wire_launches"][k] for k in ("hash_to_g2",
+                                                          "decompress_g2")}}
     emit({"phase": "summary", "script_seconds": time.perf_counter() - start,
           "main_path_launches": launches})
     emit({"kernels": [

@@ -8,8 +8,8 @@ fresh checkout builds everything the first time a kernel is launched and
 reuses the library while the sources are unchanged.
 
 Every launching C entry point returns ``cudaGetLastError()``; the
-wrappers in ``ops/pairing.py``, ``ops/msm.py`` and ``ops/eval.py`` raise
-when it is not zero.
+wrappers in ``ops/pairing.py``, ``ops/msm.py``, ``ops/eval.py`` and
+``ops/wire.py`` raise when it is not zero.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ _ENTRY_POINTS = {
     "eval": {
         "eval_horner_launch": ["p", "i", "p", "i", "p", "i", "i", "p", "p",
                                "i", "p"],
+    },
+    "h2c": {
+        "hash_to_g2_launch": ["p", "i", "p", "i", "p", "p", "p", "i", "p"],
+        "decompress_g2_launch": ["p", "i", "p", "i", "p", "p", "p", "p", "i",
+                                 "p"],
     },
 }
 
@@ -162,9 +167,19 @@ def library(name: str) -> ctypes.CDLL:
 def build_all() -> dict:
     """Build every library, one nvcc per source, all started together;
     returns {name: info} with the build time and ptxas's registers and
-    spills per kernel."""
+    spills per kernel. If a build fails, the others are waited for (nvcc
+    runs children of its own) before the error is raised."""
     todo = [n for n in _ENTRY_POINTS if n not in _LIBS]
-    started = {n: _start(n) for n in todo}
-    for n in todo:
-        _load(n, _finish(n, started[n]))
+    started = {}
+    try:
+        for n in todo:
+            started[n] = _start(n)
+        for n in todo:
+            _load(n, _finish(n, started[n]))
+            del started[n]
+    finally:
+        for s in started.values():
+            if s is not None:
+                s[0].wait()
+                s[2].close()
     return dict(_INFO)

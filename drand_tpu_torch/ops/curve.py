@@ -14,6 +14,11 @@ kernels, which follow the same formulas, agree with it word for word.
 
 Independent field products of one formula are stacked into one field
 call, so the Python op count stays per formula step, not per product.
+
+The G2 maps of ``ops/bl_curve.py`` follow (``pt_neg``, ``psi``,
+``psi2``, ``mul_x``, ``subgroup_check``, ``clear_cofactor``): the plain
+version of the point code of ``csrc/h2c.cu``. Their constants come from
+``crypto/endo.py``.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from ..crypto import endo
+from ..crypto.fields import X_BLS
 from . import field as fd
-from .limb import NHALF
+from .limb import NHALF, int_to_halves, to_mont
 
 
 def _f2_one(shape, device):
@@ -186,3 +193,89 @@ def scalar_to_bits(k: int, nbits: int) -> np.ndarray:
         raise ValueError("scalar out of range")
     return np.array([(k >> (nbits - 1 - i)) & 1 for i in range(nbits)],
                     dtype=np.int32)
+
+
+# ---------------------------------------------------------------------------
+# G2 maps (ops/bl_curve.py): ψ, [x], Scott's check, Budroni-Pintore
+# ---------------------------------------------------------------------------
+
+# |x| MSB first; x = X_BLS < 0
+X_ABS_BITS = [int(c) for c in bin(-X_BLS)[2:]]
+_F2_CONSTS: dict[tuple[int, int, str], torch.Tensor] = {}
+
+
+def f2_const(value, device) -> torch.Tensor:
+    """A host Fp2 constant as (2, 24) Montgomery half-words on device."""
+    key = (value.c0, value.c1, str(device))
+    t = _F2_CONSTS.get(key)
+    if t is None:
+        t = torch.tensor([int_to_halves(to_mont(value.c0)),
+                          int_to_halves(to_mont(value.c1))],
+                         dtype=torch.int64, device=device)
+        _F2_CONSTS[key] = t
+    return t
+
+
+def _pair_const(cx, cy, like):
+    """(2, 1, ..., 2, 24): two Fp2 constants against a stack of two
+    coordinates shaped like ``like``."""
+    c = torch.stack([f2_const(cx, like.device), f2_const(cy, like.device)])
+    return c.reshape((2,) + (1,) * (like.dim() - 2) + c.shape[1:])
+
+
+def pt_neg(p):
+    return p[0], fd.neg(p[1]), p[2], p[3]
+
+
+def psi(p):
+    """ψ on a Jacobian G2 point: (c_x·X̄, c_y·Ȳ, Z̄) — no inversion
+    (``bl_curve.psi``)."""
+    X, Y, Z, inf = p
+    c = _pair_const(endo.PSI_CX, endo.PSI_CY, X)
+    XY = F2.mul(fd.f2_conj(torch.stack([X, Y])), c)
+    return XY[0], XY[1], fd.f2_conj(Z), inf
+
+
+def psi2(p):
+    """ψ² on a Jacobian G2 point: (c2_x·X, c2_y·Y, Z)."""
+    X, Y, Z, inf = p
+    XY = F2.mul(torch.stack([X, Y]), _pair_const(endo.PSI2_CX, endo.PSI2_CY, X))
+    return XY[0], XY[1], Z, inf
+
+
+def mul_x(F, p):
+    """[x]P with x = X_BLS < 0 (``bl_curve.mul_x``): [|x|]P MSB first
+    from P itself (the leading bit), 63 doublings and an addition on each
+    of the 5 further set bits — the same for every lane — then negated."""
+    acc = p
+    for bit in X_ABS_BITS[1:]:
+        acc = pt_dbl(F, acc)
+        if bit:
+            acc = pt_add(F, acc, p)
+    return pt_neg(acc)
+
+
+def subgroup_check(F, q) -> torch.Tensor:
+    """(...,) bool: ψ(Q) == [x]Q by Jacobian cross-multiplication (Scott;
+    ``bl_curve.subgroup_check``). Infinity is a member."""
+    lhs, rhs = psi(q), mul_x(F, q)
+    z1s, z2s = F.sqr(torch.stack([lhs[2], rhs[2]])).unbind(0)
+    z1c, z2c = F.mul(torch.stack([z1s, z2s]),
+                     torch.stack([lhs[2], rhs[2]])).unbind(0)
+    a = F.mul(torch.stack([lhs[0], rhs[0], lhs[1], rhs[1]]),
+              torch.stack([z2s, z1s, z2c, z1c]))
+    ex = is_zero(F, fd.sub(a[0], a[1]))
+    ey = is_zero(F, fd.sub(a[2], a[3]))
+    both = ex & ey & ~lhs[3] & ~rhs[3]
+    return both | (lhs[3] & rhs[3]) | q[3]
+
+
+def clear_cofactor(F, p):
+    """[h_eff]P by Budroni-Pintore (``bl_curve.clear_cofactor``):
+    [x²−x−1]P + ψ([x−1]P) + ψ²([2]P) with t1 = [x]P, t2 = [x]t1."""
+    t1 = mul_x(F, p)
+    t2 = mul_x(F, t1)
+    part1 = pt_add(F, pt_add(F, t2, pt_neg(t1)), pt_neg(p))
+    part2 = psi(pt_add(F, t1, pt_neg(p)))
+    part3 = psi2(pt_dbl(F, p))
+    return pt_add(F, pt_add(F, part1, part2), part3)

@@ -1,18 +1,25 @@
-"""Batched BLS engine on the card: verification (slice 1) and the
-threshold round (slice 2) of the port.
+"""Batched BLS engine on the card: verification (slice 1), the
+threshold round (slice 2) and the wire path (slice 3) of the port.
 
 Counterpart of the JAX package's ``BatchedEngine`` (``drand_tpu/ops/
-engine.py``) in the configuration where every check goes through
-``verify_bls`` and every round through the fused round (no wire tier,
-no RLC tier — the JAX engine with ``wire_prep=False`` and ``rlc_min``
-above every batch):
+engine.py``) with its per-item, fused-round, wire and wire-RLC tiers
+(not yet its host-RLC tiers, its timelock opens or its mesh):
 
 - ``verify_bls``: a batch of (pub, sig, H(msg)) triples, padded to a
   bucket (4, 128 or 512) and checked by the two kernels of
   ``ops/pairing.py``; larger batches run as several top-bucket launches
   and are read back once;
-- ``verify_beacons``: V1 (chained) + V2 checks of a span of rounds,
-  flattened into one ``verify_bls`` call (client/verify.go:146-163);
+- ``verify_beacons``: V1 (chained) + V2 checks of a span of rounds
+  (client/verify.go:146-163), routed as the JAX engine routes it: with
+  the wire path on, the wire-RLC tier first and per-item ``verify_wire``
+  when it returns None; with it off, one flattened ``verify_bls`` call;
+- ``verify_wire``: (message bytes, compressed signature) checks with
+  hashing, decompression and the subgroup check on the card (the kernels
+  of ``ops/wire.py``): the host does only SHA-256 expansion and byte
+  splitting (``ops/h2c.py``);
+- ``verify_wire_rlc`` / ``verify_beacons_wire_rlc``: a span collapsed
+  on the card to (Σcᵢσᵢ, ΣcᵢH(mᵢ)) with 128-bit random scalars — two MSM
+  launches per bucket — and ONE product check of two Miller pairs;
 - ``verify_sigs``: (msg, sig) pairs against one public key
   (chain/beacon/chain.go:141);
 - ``verify_partials``: one round's partials against their share public
@@ -27,18 +34,27 @@ above every batch):
   signature, the recovered row spliced into the pairing batch on the
   card, K1, K2 — and one read-back.
 
-Hashing to G2 and signature decompression run on the host; decoding
-uses the ψ subgroup check (``crypto/endo.py``). ``device=None`` means
+Off the wire path, hashing to G2 and signature decompression run on the
+host; decoding uses the ψ subgroup check (``crypto/endo.py``).
+``wire_prep`` chooses: True always, False never, None (the default) for
+spans of at least ``WIRE_MIN_CHECKS`` checks. The wire and wire-RLC
+buckets are the engine's buckets: the JAX engine caps its wire buckets
+at 128 (``WIRE_MAX_BUCKET``) because of the TPU's VMEM, which the card
+does not share. ``device=None`` means
 ``cuda``; without CUDA the constructor raises — it never moves to the
 CPU on its own. With ``device="cpu"`` the kernels' plain PyTorch
 versions run (the tests).
 
 Every shape passes a known-answer gate before first use (the JAX
 engine's probes, all lanes must match); on failure the engine RAISES:
-there is no fallback to the CPU or to the host oracle. What stays is
-the protocol's own tail: a chosen partial that turns out invalid, or a
-round larger than the top bucket, goes verify → filter → recover →
-verify, as in the JAX engine.
+there is no fallback to the CPU or to the host oracle, and a failed
+wire or wire-RLC gate, or a failed launch, is never swallowed into
+another path (the JAX engine disables the shape or falls back to the
+triples path there). What stays is the protocol's own tail: a chosen
+partial that turns out invalid, or a round larger than the top bucket,
+goes verify → filter → recover → verify; a combined RLC check that
+fails, or a combination that degenerates to infinity, returns None and
+the per-item wire path decides exactly — as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -50,14 +66,15 @@ import torch
 
 from .. import metrics
 from ..chain import beacon as chain_beacon
-from ..crypto import bls, endo, tbls
+from ..crypto import batch_verify, bls, endo, tbls
 from ..crypto.curves import PointG1, PointG2
 from ..crypto.fields import P, R, Fp, Fp2
 from ..crypto.hash_to_curve import DEFAULT_DST_G2, hash_to_g2
 from ..crypto.poly import PriPoly, PubPoly, PubShare, lagrange_coefficients
 from . import eval as horner_ops
+from . import h2c as h2c_ops
 from . import msm as msm_ops
-from . import pairing
+from . import pairing, wire
 from .curve import scalar_to_bits
 from .limb import NWORDS, fp_from_words, fp_words
 
@@ -70,6 +87,14 @@ EVAL_IDX_BITS = 11
 # (else 128), as the JAX engine's eval paths choose them
 _EVAL_MIN_BUCKET = 32
 FULL_SCALAR_BITS = 255
+# auto wire mode: spans of at least this many checks take the wire path
+# (the JAX engine's PALLAS_MIN_BUCKET)
+WIRE_MIN_CHECKS = 32
+# spans of at least this many checks try the wire-RLC tier first (the JAX
+# engine's ENGINE_RLC_MIN; an instance attribute, rlc_min)
+ENGINE_RLC_MIN = 8
+RLC_NBITS = batch_verify.RLC_SCALAR_BITS
+_PAD_MSG = b"drand-tpu-pad"
 
 
 def _g1_xy(xy) -> np.ndarray:
@@ -112,6 +137,21 @@ def _bucket_of(n: int, buckets) -> int:
     return buckets[-1]
 
 
+def _beacon_checks(beacons):
+    """(message, signature bytes) checks of a span — V1, then V2 when
+    present — and each beacon's (start, count) in them."""
+    checks, spans = [], []
+    for bcn in beacons:
+        start = len(checks)
+        checks.append((chain_beacon.message(bcn.round, bcn.previous_sig),
+                       bcn.signature))
+        if bcn.is_v2():
+            checks.append((chain_beacon.message_v2(bcn.round),
+                           bcn.signature_v2))
+        spans.append((start, len(checks) - start))
+    return checks, spans
+
+
 def msm_lanes(t: int, gls4: bool) -> int:
     """MSM lanes of a t-share recovery: four digit lanes per share with
     GLS4, one otherwise, padded to a power of two of at least 8 (the
@@ -122,7 +162,8 @@ def msm_lanes(t: int, gls4: bool) -> int:
 class BatchedEngine:
     """Bucketed batch verifier and threshold-round engine on one device."""
 
-    def __init__(self, device=None, buckets=DEFAULT_BUCKETS, gls4=True):
+    def __init__(self, device=None, buckets=DEFAULT_BUCKETS, gls4=True,
+                 wire_prep: bool | None = None):
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -140,6 +181,12 @@ class BatchedEngine:
         # TPU (on), a constructor argument so the 255-bit packing stays
         # reachable
         self.gls4 = bool(gls4)
+        # wire path: True always, False never, None for spans of at least
+        # WIRE_MIN_CHECKS checks
+        self.wire_prep = wire_prep
+        self.rlc_min = ENGINE_RLC_MIN
+        self._wire_ok: dict[int, bool] = {}
+        self._wire_rlc_ok: dict[int, bool] = {}
         self._msg_cache: dict[tuple[bytes, bytes], PointG2] = {}
         self._bucket_ok: dict[int, bool] = {}
         self._agg_ok: dict[tuple[int, int, int], bool] = {}
@@ -147,10 +194,11 @@ class BatchedEngine:
         self._poly_eval_ok: dict[tuple[int, int, bool], bool] = {}
         # host vs device seconds of the public calls, summed (hash =
         # hash-to-G2, decode = signature decompression + subgroup check,
+        # prep = the wire path's SHA-256 expansion and byte splitting,
         # pack = affine conversion + word packing + host unpacking,
         # device = kernels and their read-back)
-        self.stage_seconds = {"hash": 0.0, "decode": 0.0, "pack": 0.0,
-                              "device": 0.0}
+        self.stage_seconds = {"hash": 0.0, "decode": 0.0, "prep": 0.0,
+                              "pack": 0.0, "device": 0.0}
 
     # ------------------------------------------------------------ host prep
     def _hash_msg(self, msg: bytes, dst: bytes) -> PointG2:
@@ -265,19 +313,22 @@ class BatchedEngine:
     def verify_beacons(self, pubkey: PointG1, beacons,
                        dst: bytes = DEFAULT_DST_G2) -> np.ndarray:
         """Dual-verify a span of beacons (V1 chained message, plus V2 when
-        present) in one flattened ``verify_bls`` call; per-beacon bools."""
-        triples, spans = [], []
-        for bcn in beacons:
-            start = len(triples)
-            msg = chain_beacon.message(bcn.round, bcn.previous_sig)
-            triples.append((pubkey, self._decode_sig(bcn.signature),
-                            self._hash_msg(msg, dst)))
-            if bcn.is_v2():
-                msg2 = chain_beacon.message_v2(bcn.round)
-                triples.append((pubkey, self._decode_sig(bcn.signature_v2),
-                                self._hash_msg(msg2, dst)))
-            spans.append((start, len(triples) - start))
-        flat = self.verify_bls(triples)
+        present); per-beacon bools. On the wire path: the wire-RLC tier
+        when the span reaches ``rlc_min``, and the per-item
+        ``verify_wire`` when that returns None (``engine.py:846-875`` of
+        the JAX package, without its silent fallback); off it, one
+        flattened ``verify_bls`` call."""
+        checks, spans = _beacon_checks(beacons)
+        if self._use_wire(len(checks)):
+            if self._rlc_wanted(len(checks)):
+                got = self.verify_beacons_wire_rlc(pubkey, beacons, dst)
+                if got is not None:
+                    return got
+            flat = self.verify_wire(pubkey, checks, dst)
+        else:
+            flat = self.verify_bls([(pubkey, self._decode_sig(sig),
+                                     self._hash_msg(msg, dst))
+                                    for msg, sig in checks])
         return np.array([bool(flat[s:s + c].all()) for s, c in spans],
                         dtype=bool)
 
@@ -303,6 +354,222 @@ class BatchedEngine:
                    else (pk, pt, msg_pt)
                    for pk, pt in zip(pubkeys, decoded)]
         return [bool(v) for v in self.verify_bls(triples)]
+
+    # ----------------------------------------------------------- wire path
+    def _use_wire(self, n_checks: int) -> bool:
+        return (self.wire_prep if self.wire_prep is not None
+                else n_checks >= WIRE_MIN_CHECKS)
+
+    def _rlc_wanted(self, n_checks: int) -> bool:
+        return n_checks >= self.rlc_min
+
+    def wire_rlc_active(self, n_checks: int) -> bool:
+        """True iff a span of ``n_checks`` wire checks takes the wire-RLC
+        tier first (wire mode and the ``rlc_min`` floor)."""
+        return bool(self._use_wire(n_checks)) and self._rlc_wanted(n_checks)
+
+    def check_wire(self, n_checks: int) -> None:
+        """Run every known-answer gate a span of ``n_checks`` wire checks
+        can reach — the wire-RLC bucket, the combined row's verify bucket
+        and the per-item wire bucket — so that a span after it launches
+        only its own kernels. Raises on failure."""
+        b = self._bucket(n_checks)
+        if self._rlc_wanted(n_checks):
+            self._check_wire_rlc(b)
+            self.check_bucket(self._bucket(1))
+        self.check_wire_bucket(b)
+
+    def _wire_prep(self, checks, b: int, dst: bytes):
+        """Host prep of one padded wire bucket: SHA-256 expansion of the
+        messages and byte splitting of the signatures (pad rows: the pad
+        message and the generator as signature) -> (u, xs, sign, valid)."""
+        t0 = time.perf_counter()
+        n = len(checks)
+        u = h2c_ops.msgs_to_u([m for m, _ in checks] + [_PAD_MSG] * (b - n),
+                              dst)
+        xs, sign, valid = h2c_ops.sigs_to_x(
+            [s for _, s in checks] + [h2c_ops.pad_sig()] * (b - n))
+        self.stage_seconds["prep"] += time.perf_counter() - t0
+        return u, xs, sign, valid
+
+    def pack_wire_bucket(self, pubkey: PointG1, checks, b: int,
+                         dst: bytes = DEFAULT_DST_G2):
+        """Host arrays of one padded wire bucket: (pub (2, 12), u, xs,
+        sign, valid, count, b); it can be dispatched any number of times
+        (``dispatch_wire_packed``)."""
+        return (_g1_xy(pubkey.to_affine()), *self._wire_prep(checks, b, dst),
+                len(checks), b)
+
+    def _wire_to_device(self, packed):
+        pub, u, xs, sign = packed[:4]
+        t0 = time.perf_counter()
+        dev = self._to_device(pub, u, xs, sign.astype(np.int32))
+        self.stage_seconds["pack"] += time.perf_counter() - t0
+        return dev
+
+    def dispatch_wire_packed(self, packed: list) -> np.ndarray:
+        """Run packed wire buckets (K6, K5, K1, K2 each) with one
+        read-back; the raw verdicts (len(packed), b), pad rows included.
+        Every copy goes to the card before the first launch: a copy from
+        pageable memory waits for the kernels queued before it."""
+        devs = [self._wire_to_device(p) for p in packed]
+        t0 = time.perf_counter()
+        host = torch.stack([wire.verify_wire_prepared(*d)
+                            for d in devs]).cpu().numpy()
+        self.stage_seconds["device"] += time.perf_counter() - t0
+        return host
+
+    def check_wire_bucket(self, b: int) -> None:
+        """Known-answer gate of wire bucket b, run once (the JAX engine's
+        ``_check_wire_bucket``): row 0 must verify, row 1 must not, and no
+        pad row (the generator over the pad message) may — all lanes.
+        Raises on failure."""
+        if self._wire_ok.get(b):
+            return
+        sk = 0x5A17
+        pub = PointG1.generator().mul(sk)
+        m = b"engine-wire-bucket-check"
+        checks = [(m, bls.sign(sk, m)), (b"other-msg", bls.sign(sk, m))]
+        packed = self.pack_wire_bucket(pub, checks, b)
+        full = self.dispatch_wire_packed([packed])[0]
+        ok = (bool(full[0]) and not bool(full[1])
+              and not bool(full[2:].any()) and bool(packed[4][:2].all()))
+        self._wire_ok[b] = ok
+        if not ok:
+            raise RuntimeError(
+                f"BatchedEngine: wire bucket {b} failed its known-answer "
+                f"test on {self.device}")
+
+    def verify_wire(self, pubkey: PointG1, checks,
+                    dst: bytes = DEFAULT_DST_G2) -> np.ndarray:
+        """Batch-verify (message bytes, compressed signature) pairs against
+        one public key, with hashing, decompression and the subgroup check
+        on the card; the host does SHA-256 expansion and byte splitting.
+        One bucket launch sequence per chunk, one read-back."""
+        n = len(checks)
+        if n == 0:
+            return np.zeros(0, dtype=bool)
+        if pubkey.is_infinity():
+            return np.zeros(n, dtype=bool)
+        b = self._bucket(n)
+        self.check_wire_bucket(b)
+        metrics.meter_rows(n)
+        packed = [self.pack_wire_bucket(pubkey, checks[i:i + b], b, dst)
+                  for i in range(0, n, b)]
+        host = self.dispatch_wire_packed(packed)
+        return np.concatenate([(host[j] & p[4])[:p[5]]
+                               for j, p in enumerate(packed)])
+
+    def _combine_wire_chunk(self, checks, cs, b: int, dst: bytes):
+        """One wire-RLC combine of <= b checks: (ok mask, Σc·σ, Σc·H(m)) as
+        host points; (mask, None, None) when no lane survives decoding;
+        None when a live combination degenerates to infinity (the caller
+        falls back; ~2^-128 for honest input). One read-back."""
+        n = len(checks)
+        u, xs, sign, valid = self._wire_prep(checks, b, dst)
+        t0 = time.perf_counter()
+        live = valid.copy()
+        live[n:] = False
+        bits = np.zeros((b, RLC_NBITS), np.int32)
+        raw = b"".join(c.to_bytes(RLC_NBITS // 8, "big") for c in cs)
+        bits[:n] = np.unpackbits(np.frombuffer(raw, np.uint8)).reshape(
+            n, RLC_NBITS)                        # MSB first
+        dev = self._to_device(u, xs, sign.astype(np.int32),
+                              live.astype(np.int32), bits)
+        t1 = time.perf_counter()
+        self.stage_seconds["pack"] += t1 - t0
+        ok, (sxy, sinf), (mxy, minf) = wire.wire_rlc_combine(*dev)
+        flat = torch.cat([ok.to(torch.int32), sxy.reshape(-1), sinf,
+                          mxy.reshape(-1), minf]).cpu().numpy()
+        self.stage_seconds["device"] += time.perf_counter() - t1
+        w = 4 * NWORDS
+        mask = flat[:b].astype(bool)[:n]
+        if not mask.any():
+            return mask, None, None
+        if flat[b + w] or flat[b + 2 * w + 1]:
+            return None
+        return (mask, _g2_from_words(flat[b:b + w].reshape(2, 2, NWORDS)),
+                _g2_from_words(flat[b + w + 1:b + 2 * w + 1].reshape(
+                    2, 2, NWORDS)))
+
+    def _check_wire_rlc(self, b: int) -> None:
+        """Known-answer gate of the wire-RLC combine at bucket b, run once
+        (the JAX engine's ``_wire_rlc_kat_probe``): two signatures and a
+        malformed lane that must be left out, against the host MSM and
+        ``hash_to_g2``. Raises on failure."""
+        if self._wire_rlc_ok.get(b):
+            return
+        sk = 0x5A17
+        m1, m2 = b"engine-wire-rlc-a", b"engine-wire-rlc-b"
+        s1, s2 = bls.sign(sk, m1), bls.sign(sk, m2)
+        checks, cs, expect_mask = [(m1, s1), (m2, s2)], [5, 7], [True, True]
+        if b >= 3:
+            checks.append((b"engine-wire-rlc-bad", b"\x00" * 96))
+            cs.append(3)
+            expect_mask.append(False)
+        got = self._combine_wire_chunk(checks, cs, b, DEFAULT_DST_G2)
+        ok = got is not None and got[1] is not None
+        if ok:
+            mask, s_comb, m_comb = got
+            p1 = PointG2.from_bytes(s1, subgroup_check=False)
+            p2 = PointG2.from_bytes(s2, subgroup_check=False)
+            ok = (mask.tolist() == expect_mask
+                  and s_comb == p1.mul(5) + p2.mul(7)
+                  and m_comb == hash_to_g2(m1).mul(5)
+                  + hash_to_g2(m2).mul(7))
+        self._wire_rlc_ok[b] = ok
+        if not ok:
+            raise RuntimeError(
+                f"BatchedEngine: wire-RLC bucket {b} failed its known-answer "
+                f"test on {self.device}")
+
+    def verify_wire_rlc(self, pubkey: PointG1, checks,
+                        dst: bytes = DEFAULT_DST_G2) -> np.ndarray | None:
+        """Per-check bools when the span's combined 2-pairing check holds
+        (checks that fail decoding are False and left out of the
+        combination), or None — a degenerate combination or a failed
+        combined check — for the caller to decide per item. Spans above
+        the bucket combine chunk by chunk under one scalar vector; the
+        chunk sums are added on the host and checked as ONE row."""
+        n = len(checks)
+        if n == 0:
+            return np.zeros(0, dtype=bool)
+        if pubkey.is_infinity():
+            return None
+        b = self._bucket(n)
+        self._check_wire_rlc(b)
+        cs = batch_verify.rlc_scalars(n)
+        ok_mask = np.zeros(n, dtype=bool)
+        s_acc = m_acc = None
+        for lo in range(0, n, b):
+            hi = min(lo + b, n)
+            got = self._combine_wire_chunk(checks[lo:hi], cs[lo:hi], b, dst)
+            if got is None:
+                return None
+            ok_chunk, s_chunk, m_chunk = got
+            ok_mask[lo:hi] = ok_chunk
+            if s_chunk is not None:
+                s_acc = s_chunk if s_acc is None else s_acc + s_chunk
+                m_acc = m_chunk if m_acc is None else m_acc + m_chunk
+        if s_acc is None:
+            return ok_mask          # nothing decodable: every check False
+        if s_acc.is_infinity() or m_acc.is_infinity():
+            return None
+        if bool(self.verify_bls([(pubkey, s_acc, m_acc)])[0]):
+            return ok_mask
+        return None
+
+    def verify_beacons_wire_rlc(self, pubkey: PointG1, beacons,
+                                dst: bytes = DEFAULT_DST_G2
+                                ) -> np.ndarray | None:
+        """A span of beacons through the wire-RLC tier: per-beacon bools,
+        or None for the caller to decide per item."""
+        checks, spans = _beacon_checks(beacons)
+        flat = self.verify_wire_rlc(pubkey, checks, dst)
+        if flat is None:
+            return None
+        return np.array([bool(flat[s:s + c].all()) for s, c in spans],
+                        dtype=bool)
 
     # ---------------------------------------------- commitment evaluation
     def _eval_bucket(self, n: int) -> int:
@@ -822,10 +1089,17 @@ class BatchedEngine:
             "backend": self.device.type,
             "devices": [name],
             "buckets": list(self.buckets),
+            "wire_buckets": list(self.buckets),
+            "wire_prep": self.wire_prep,
+            "rlc_min": self.rlc_min,
             "gls4": self.gls4,
             "kat": {
                 "verify": {str(b): ok for b, ok
                            in sorted(self._bucket_ok.items())},
+                "wire": {str(b): ok for b, ok
+                         in sorted(self._wire_ok.items())},
+                "wire_rlc": {str(b): ok for b, ok
+                             in sorted(self._wire_rlc_ok.items())},
                 "agg": {str(k): ok for k, ok in sorted(self._agg_ok.items())},
                 "eval": {str(k): ok for k, ok
                          in sorted(self._eval_ok.items())},

@@ -39,16 +39,21 @@ XY_SHAPE = (2, 2, NWORDS)
 
 def msm_plain(pts: torch.Tensor, mask: torch.Tensor, bits: torch.Tensor):
     """Plain version: per-lane ladders (``pt_mul_bits``), a log-tree fold
-    and the to-affine, on any device. Returns (xy, inf)."""
-    xh = words_to_halves(pts[:, 0])
-    yh = words_to_halves(pts[:, 1])
-    inf = mask != 0
+    and the to-affine, on any device. Returns (xy, inf). ``pts`` may carry
+    leading axes before the lane axis (several MSMs over the same mask and
+    bits in one call); the outputs then carry them too."""
+    xh = words_to_halves(pts[..., 0, :, :])
+    yh = words_to_halves(pts[..., 1, :, :])
+    inf = (mask != 0).expand(xh.shape[:-2])
     one = cv.F2.one(inf.shape, pts.device)
     acc = cv.pt_mul_bits(cv.F2, (xh, yh, one, inf), bits)
-    x, y, rinf = cv.pt_to_affine(cv.F2, cv.pt_fold(cv.F2, acc))
-    xy = torch.where(rinf, torch.zeros_like(x), torch.stack([x, y]))
+    lanes_first = tuple(c.movedim(-3, 0) for c in acc[:3]) + (
+        acc[3].movedim(-1, 0),)
+    x, y, rinf = cv.pt_to_affine(cv.F2, cv.pt_fold(cv.F2, lanes_first))
+    xy = torch.stack([x, y], dim=-3)
+    xy = torch.where(rinf[..., None, None, None], torch.zeros_like(xy), xy)
     return (halves_to_words(xy),
-            rinf.reshape(1).to(torch.int32))
+            rinf.reshape(rinf.shape + (1,)).to(torch.int32))
 
 
 def _lib():

@@ -26,6 +26,13 @@ SLICE_TWO_PHASES = ["_point_products", "_msm_case", "_dealers", "_horner_case",
                     "_curve_kernels", "_partials", "_threshold_rounds",
                     "phase_live_round", "phase_threshold_round",
                     "phase_deal_check"]
+# the modules of the wire path (slice 3), and chip_smoke.py's functions
+# that drive it
+SLICE_THREE_MODULES = ["drand_tpu_torch.ops.h2c", "drand_tpu_torch.ops.wire",
+                       "drand_tpu_torch.crypto.batch_verify"]
+SLICE_THREE_PHASES = ["_chain", "_corrupt", "_f2_of", "_products", "_k5_case",
+                      "_k6_case", "_wire_kernels", "_group_key",
+                      "phase_catchup", "phase_catchup_wire", "_launches"]
 
 
 def _forbidden(name: str) -> bool:
@@ -67,6 +74,7 @@ def test_import_adds_no_jax_or_reference_module():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert "drand_tpu_torch.ops.engine" in got["imported"]
     assert set(SLICE_TWO_MODULES) <= set(got["imported"])
+    assert set(SLICE_THREE_MODULES) <= set(got["imported"])
     leaked = [m for m in got["added"] if _forbidden(m)]
     assert not leaked, leaked
 
@@ -81,11 +89,11 @@ def test_engine_refuses_without_cuda(monkeypatch):
         BatchedEngine(device="cuda")
 
 
-@pytest.mark.parametrize("name", SLICE_TWO_PHASES)
+@pytest.mark.parametrize("name", SLICE_TWO_PHASES + SLICE_THREE_PHASES)
 def test_chip_smoke_phase_imports_only_the_port(name):
-    """Each function of chip_smoke.py that drives the threshold round
-    imports only the port, torch and numpy (and the standard library at
-    the top of the file)."""
+    """Each function of chip_smoke.py that drives the threshold round or
+    the wire path imports only the port, torch and numpy (and the
+    standard library at the top of the file)."""
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     fn = next(n for n in ast.walk(tree)
               if isinstance(n, ast.FunctionDef) and n.name == name)
@@ -99,17 +107,50 @@ def test_chip_smoke_phase_imports_only_the_port(name):
                for m in mods), mods
 
 
-@pytest.mark.parametrize("wrapper", ["msm", "horner"])
+@pytest.mark.parametrize("wrapper", ["msm", "horner", "hash_to_g2",
+                                     "decompress_g2"])
 def test_kernel_wrappers_refuse_other_devices(wrapper):
     """Off the CPU a wrapper launches its kernel or raises: a tensor on
     another device is refused, never computed by the plain version."""
-    from drand_tpu_torch.ops import eval as ev, msm
+    from drand_tpu_torch.ops import eval as ev, msm, wire
 
     meta = {"device": "meta", "dtype": torch.int32}
     with pytest.raises(ValueError, match="unsupported device"):
         if wrapper == "msm":
             msm.msm(torch.empty((4, 2, 2, 12), **meta),
                     torch.empty((4,), **meta), torch.empty((4, 64), **meta))
-        else:
+        elif wrapper == "horner":
             ev.horner(torch.empty((3, 4, 2, 12), **meta),
                       torch.empty((4, 11), **meta))
+        elif wrapper == "hash_to_g2":
+            wire.hash_to_g2(torch.empty((4, 2, 2, 12), **meta))
+        else:
+            wire.decompress_g2(torch.empty((4, 2, 12), **meta),
+                               torch.empty((4,), **meta))
+
+
+@pytest.mark.parametrize("wrapper", ["hash_to_g2", "decompress_g2"])
+def test_wire_wrappers_check_their_inputs(wrapper):
+    """The wire wrappers refuse a wrong dtype, shape or layout before any
+    launch."""
+    from drand_tpu_torch.ops import wire
+
+    if wrapper == "hash_to_g2":
+        good = torch.zeros((4, 2, 2, 12), dtype=torch.int32)
+        call = wire.hash_to_g2
+        with pytest.raises(TypeError, match="dtype"):
+            call(good.to(torch.int64))
+        with pytest.raises(ValueError, match="shape"):
+            call(good[:, :, :, :6])
+        with pytest.raises(ValueError, match="contiguous"):
+            call(good.transpose(1, 2))
+    else:
+        good = torch.zeros((4, 2, 12), dtype=torch.int32)
+        sign = torch.zeros(4, dtype=torch.int32)
+        call = wire.decompress_g2
+        with pytest.raises(TypeError, match="dtype"):
+            call(good, sign.to(torch.bool))
+        with pytest.raises(ValueError, match="shape"):
+            call(good, sign[:3])
+        with pytest.raises(ValueError, match="contiguous"):
+            call(good.transpose(0, 1).contiguous().transpose(0, 1), sign)
