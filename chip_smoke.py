@@ -30,26 +30,47 @@ line each:
                    split rejects; 16 lanes of each also against the host;
                    the MSM at the wire-RLC shape (512 lanes × 128 bits)
                    and K1/K2 at the combined row's bucket of 4;
-3. ``catchup``   — ``BatchedEngine(wire_prep=False).verify_beacons`` over
+3. ``probes``    — the card's own probes (``drand_tpu_torch/tools``), each
+                   tool's run its main path: ``microbench`` (CUDA-core
+                   chains in int32, f32, bf16 and the wide multiply-add
+                   pair; mma.sync chains in bf16, int8 and TF32; at the
+                   JAX tool's shapes and at shapes that fill the card; the
+                   SASS instruction each loop keeps), ``proto_mxu`` (the
+                   Montgomery chain on the CUDA cores and with REDC on
+                   the int8 tensor cores, B = 128 and a lane count that
+                   fills the card) and ``proto_miller_grid`` (63 step
+                   launches against K1 at B = 128 and 512); every kernel
+                   against its plain version (the integer chains, both
+                   REDC chains and the Miller step word for word, the
+                   Miller step also against K1 on the kernels phase's
+                   512 lanes; the float CUDA-core chains, and the float
+                   tensor-core chains over 1 and 8 steps, within the
+                   tolerances of ``tools/microbench.py``, and those on a
+                   scaled signed permutation word for word), a chain of
+                   one PyTorch call a step beside each chain where there
+                   is one;
+4. ``catchup``   — ``BatchedEngine(wire_prep=False).verify_beacons`` over
                    the first 256 rounds of a chained beacon that also
                    carries V2 signatures, under one 6-of-10 group key,
                    with one V1 and one V2 signature corrupted: host
                    hashing and decoding, one launch of K1 and K2;
-4. ``catchup_wire`` — the default engine (the wire path) over the whole
+5. ``catchup_wire`` — the default engine (the wire path) over the whole
                    1024-round chain: first clean (the wire-RLC tier, one
                    combined product check), then with one V1 and one V2
                    signature corrupted (the combined check fails and the
                    per-item wire path decides);
-5. ``live_round`` — the League of Entropy round (6 of 10) through
+6. ``live_round`` — the League of Entropy round (6 of 10) through
                    ``aggregate_round``, once with every partial valid and
                    once with one chosen partial signing another message
                    (the classic tail), each on a fresh ``PubPoly``;
-6. ``threshold_round`` — the same at 67 of 100 (BASELINE config 3);
-7. ``deal_check`` — ``eval_commits`` of 128 dealers' t = 65 commitment
+7. ``threshold_round`` — the same at 67 of 100 (BASELINE config 3);
+8. ``deal_check`` — ``eval_commits`` of 128 dealers' t = 65 commitment
                    polynomials at one node index (BASELINE config 4).
 
-Each path's launches are counted from zero just before it runs, after the
-engine's known-answer gates, and checked exactly. Then a ``summary``
+The beacon chain the paths verify is signed in worker processes that
+start before the build and run beside it. Each path's launches are
+counted from zero just before it runs, after the engine's known-answer
+gates, and checked exactly. Then a ``summary``
 line, a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and, if every phase passed, the last line
 ``{"ok": true, "device": {...}}``. Any failed phase, a machine without
@@ -59,12 +80,14 @@ that line. Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import random
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -95,6 +118,7 @@ HORNER_LANES = 128
 EVAL_BITS = 11
 TIMED_LAUNCHES = 5
 GENERATE_TIMEOUT_S = 400
+CHAIN_WORKERS = 4                 # 1 V1 chain + 3 V2 slices, beside 6 nvcc
 
 # H100 SXM integer rate for the bound: 64 INT32 lanes per SM (Hopper white
 # paper) x 132 SMs x 1.98 GHz boost (the clock behind the 67 TFLOP/s
@@ -104,6 +128,17 @@ INT32_MAD_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 MAD_PER_FP_PRODUCT = 2 * 288 + 12   # CIOS: 144 product + 144 reduction
                                     # wide MADs, 12 m = t0·n0 multiplies
+# Peak rates of the H100 SXM for the probes' bounds, dense: FFMA 67
+# TFLOP/s, tensor cores 989 (bf16), 1,979 (int8) and 495 (TF32) T/s (the
+# data sheet); bf16 outside the tensor cores (HFMA2) 133.8 TFLOP/s (the
+# Hopper white paper).
+F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 133.8e12
+TENSOR_OPS_PER_S = {"bf16_f32": 989e12, "int8_i32": 1979e12,
+                    "tf32_f32": 495e12}
+PROBE_REPS = 5
+MAD_PER_PRODUCT_ON_CORES = 2 * 144  # a·b of the tensor-core REDC chain
+TENSOR_OPS_PER_REDC = 2 * (48 + 96) * 48   # its two byte GEMMs, per lane
 
 
 def emit(obj) -> None:
@@ -215,10 +250,16 @@ def make_chain(n_rounds: int, workers: int):
 # phases
 # ---------------------------------------------------------------------------
 
-KERNEL_NAMES = {"pairing": ("miller_loop_kernel", "final_exp_verdict_kernel"),
+KERNEL_NAMES = {"pairing": ("miller_loop_kernel", "final_exp_verdict_kernel",
+                            "miller_step_kernel"),
                 "msm": ("msm_ladder_fold_kernel", "msm_final_kernel"),
                 "eval": ("eval_horner_kernel",),
-                "h2c": ("hash_to_g2_kernel", "decompress_g2_kernel")}
+                "h2c": ("hash_to_g2_kernel", "decompress_g2_kernel"),
+                "microbench": ("chain_i32_kernel", "chain_f32_kernel",
+                               "chain_bf16_kernel", "chain_wide_kernel",
+                               "mma_bf16_kernel", "mma_s8_kernel",
+                               "mma_tf32_kernel"),
+                "mxu_redc": ("mont_chain_cuda_kernel", "mont_chain_tc_kernel")}
 
 
 def phase_build(state) -> dict:
@@ -280,55 +321,25 @@ def _kernel_inputs(device, n_lanes: int):
              for a in (pubs, sigs, msgs)], expect, oracle)
 
 
-def _time_ms(fn, n: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def _time_once_ms(fn):
-    import torch
-
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
-
-
-def _max_abs_err(a, b) -> int:
-    return int((a.long() - b.long()).abs().max().item())
-
-
 def _against_plain(pp, field, xp, yp, q) -> dict:
     """K1 and K2 on (xp, yp, q), and their plain versions on the same
     inputs; the errors, outputs, plain times and Fp products per check."""
     import torch
 
+    from drand_tpu_torch.tools._common import max_abs_err, time_once
+
     b = xp.shape[0]
     f_k = pp.miller_loop(xp, yp, q)
     field.N_FP_PRODUCTS = 0
-    f_p, k1_plain_ms = _time_once_ms(lambda: pp.miller_loop_plain(xp, yp, q))
+    f_p, k1_plain_ms = time_once(lambda: pp.miller_loop_plain(xp, yp, q))
     k1_products = field.N_FP_PRODUCTS / b
     gt_k, ok_k = pp.final_exp_verdict(f_k)
     field.N_FP_PRODUCTS = 0
-    (gt_p, ok_p), k2_plain_ms = _time_once_ms(lambda: pp.final_exp_plain(f_k))
+    (gt_p, ok_p), k2_plain_ms = time_once(lambda: pp.final_exp_plain(f_k))
     k2_products = field.N_FP_PRODUCTS / b
     torch.cuda.synchronize()
-    return {"k1_err": _max_abs_err(f_k, f_p),
-            "k2_err": max(_max_abs_err(gt_k, gt_p), _max_abs_err(ok_k, ok_p)),
+    return {"k1_err": max_abs_err(f_k, f_p),
+            "k2_err": max(max_abs_err(gt_k, gt_p), max_abs_err(ok_k, ok_p)),
             "f": f_k, "gt": gt_k, "ok": ok_k,
             "k1_plain_ms": k1_plain_ms, "k2_plain_ms": k2_plain_ms,
             "k1_products": k1_products, "k2_products": k2_products}
@@ -354,6 +365,7 @@ def _pairing_kernels(state) -> dict:
     round), every lane with its own inputs."""
     from drand_tpu_torch.ops import field, pairing as pp
     from drand_tpu_torch.ops.limb import unpack_ints
+    from drand_tpu_torch.tools._common import time_ms
 
     dev = state["device"]
     (pubs, sigs, msgs), expect, oracle = _kernel_inputs(dev, MAIN_BUCKET)
@@ -365,20 +377,22 @@ def _pairing_kernels(state) -> dict:
     xc, yc, qc = (t[:COMBINED_BUCKET].contiguous() for t in (xp, yp, q))
     comb = _against_plain(pp, field, xc, yc, qc)
     f_k, gt_k, ok_k = main["f"], main["gt"], main["ok"]
+    # the Miller step kernel is held against K1 on these lanes (probes)
+    state["k1_main"] = (xp, yp, q, f_k)
 
     verdicts_ok = (ok_k.cpu().tolist() == expect
                    and live["ok"].cpu().tolist() == expect[:LIVE_BUCKET]
                    and comb["ok"].cpu().tolist() == expect[:COMBINED_BUCKET])
     oracle_ok = all(unpack_ints(gt[8]).reshape(-1).tolist() == oracle
                     for gt in (gt_k, live["gt"]))
-    k1_ms = _time_ms(lambda: pp.miller_loop(xp, yp, q), TIMED_LAUNCHES)
-    k2_ms = _time_ms(lambda: pp.final_exp_verdict(f_k), TIMED_LAUNCHES)
-    k1_live_ms = _time_ms(lambda: pp.miller_loop(xl, yl, ql), TIMED_LAUNCHES)
-    k2_live_ms = _time_ms(lambda: pp.final_exp_verdict(live["f"]),
-                          TIMED_LAUNCHES)
-    k1_comb_ms = _time_ms(lambda: pp.miller_loop(xc, yc, qc), TIMED_LAUNCHES)
-    k2_comb_ms = _time_ms(lambda: pp.final_exp_verdict(comb["f"]),
-                          TIMED_LAUNCHES)
+    k1_ms = time_ms(lambda: pp.miller_loop(xp, yp, q), TIMED_LAUNCHES)
+    k2_ms = time_ms(lambda: pp.final_exp_verdict(f_k), TIMED_LAUNCHES)
+    k1_live_ms = time_ms(lambda: pp.miller_loop(xl, yl, ql), TIMED_LAUNCHES)
+    k2_live_ms = time_ms(lambda: pp.final_exp_verdict(live["f"]),
+                         TIMED_LAUNCHES)
+    k1_comb_ms = time_ms(lambda: pp.miller_loop(xc, yc, qc), TIMED_LAUNCHES)
+    k2_comb_ms = time_ms(lambda: pp.final_exp_verdict(comb["f"]),
+                         TIMED_LAUNCHES)
 
     k1_bound, k1_by = _bound_ms(main["k1_products"] * b,
                                 _nbytes(xp, yp, q, f_k))
@@ -499,6 +513,7 @@ def _msm_case(dev, rng, n_lanes: int, nbits: int, counts: dict) -> dict:
     from drand_tpu_torch.ops import msm
     from drand_tpu_torch.ops.curve import scalar_to_bits
     from drand_tpu_torch.ops.engine import _g2_from_words, _g2_xy
+    from drand_tpu_torch.tools._common import max_abs_err, time_ms, time_once
 
     g = PointG2.generator()
     step, p = g.mul(rng.randrange(1, R)), g.mul(rng.randrange(1, R))
@@ -516,8 +531,8 @@ def _msm_case(dev, rng, n_lanes: int, nbits: int, counts: dict) -> dict:
     args = [torch.from_numpy(a).to(dev) for a in
             (arr, np.array(mask, np.int32), bits.astype(np.int32))]
     xy_k, inf_k = msm.msm(*args)
-    (xy_p, inf_p), plain_ms = _time_once_ms(lambda: msm.msm_plain(*args))
-    err = max(_max_abs_err(xy_k, xy_p), _max_abs_err(inf_k, inf_p))
+    (xy_p, inf_p), plain_ms = time_once(lambda: msm.msm_plain(*args))
+    err = max(max_abs_err(xy_k, xy_p), max_abs_err(inf_k, inf_p))
     host = PointG2.infinity()
     for pt, k, m in zip(pts, scal, mask):
         if not m:
@@ -531,7 +546,7 @@ def _msm_case(dev, rng, n_lanes: int, nbits: int, counts: dict) -> dict:
     return {"lanes": n_lanes, "nbits": nbits, "masked": sum(mask),
             "max_abs_err": err, "host_match": bool(got == host
                                                    and not inf_k.item()),
-            "ms": _time_ms(lambda: msm.msm(*args), TIMED_LAUNCHES),
+            "ms": time_ms(lambda: msm.msm(*args), TIMED_LAUNCHES),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "fp_products": products}
 
@@ -560,6 +575,7 @@ def _horner_case(state, rng, counts: dict) -> dict:
     from drand_tpu_torch.ops import eval as ev
     from drand_tpu_torch.ops.curve import scalar_to_bits
     from drand_tpu_torch.ops.engine import BatchedEngine, _g1_xy
+    from drand_tpu_torch.tools._common import max_abs_err, time_ms, time_once
 
     dev = state["device"]
     polys = _dealers(state)[:HORNER_LANES]
@@ -575,15 +591,15 @@ def _horner_case(state, rng, counts: dict) -> dict:
     errs = {}
     for affine in (False, True):
         xyz_k, inf_k = ev.horner(com_d, bits_d, affine)
-        (xyz_p, inf_p), plain_ms = _time_once_ms(
+        (xyz_p, inf_p), plain_ms = time_once(
             lambda: ev.horner_plain(com_d, bits_d, affine))
-        errs[f"affine_{affine}"] = max(_max_abs_err(xyz_k, xyz_p),
-                                       _max_abs_err(inf_k, inf_p))
+        errs[f"affine_{affine}"] = max(max_abs_err(xyz_k, xyz_p),
+                                       max_abs_err(inf_k, inf_p))
         got = BatchedEngine._unpack_eval_host(
             xyz_k.cpu().numpy(), inf_k.cpu().numpy(), 8)
         out[f"host_match_affine_{affine}"] = got == [
             p.eval(i).value for p, i in zip(polys[:8], idx[:8])]
-        out[f"ms_affine_{affine}"] = _time_ms(
+        out[f"ms_affine_{affine}"] = time_ms(
             lambda: ev.horner(com_d, bits_d, affine), TIMED_LAUNCHES)
         out[f"plain_ms_affine_{affine}"] = plain_ms
         products = (t - 1) * sum(
@@ -609,6 +625,7 @@ def _horner_round_case(dev, t: int, n: int, tag: bytes, counts: dict) -> dict:
     from drand_tpu_torch.crypto.poly import PriPoly
     from drand_tpu_torch.ops import eval as ev
     from drand_tpu_torch.ops.engine import BatchedEngine
+    from drand_tpu_torch.tools._common import max_abs_err, time_ms, time_once
 
     eng = BatchedEngine(device=dev)
     poly = PriPoly.random(t, seed=tag).commit()
@@ -616,9 +633,9 @@ def _horner_round_case(dev, t: int, n: int, tag: bytes, counts: dict) -> dict:
     com_d = eng._poly_commit_words(poly, b)
     bits_d = eng._index_bits(list(range(n)), b)
     xyz_k, inf_k = ev.horner(com_d, bits_d, True)
-    (xyz_p, inf_p), plain_ms = _time_once_ms(
+    (xyz_p, inf_p), plain_ms = time_once(
         lambda: ev.horner_plain(com_d, bits_d, True))
-    err = max(_max_abs_err(xyz_k, xyz_p), _max_abs_err(inf_k, inf_p))
+    err = max(max_abs_err(xyz_k, xyz_p), max_abs_err(inf_k, inf_p))
     got = BatchedEngine._unpack_eval_host(xyz_k.cpu().numpy(),
                                           inf_k.cpu().numpy(), n)
     products = sum((t - 1) * (_ladder_products(i + 1, counts["g1_dbl"],
@@ -629,8 +646,8 @@ def _horner_round_case(dev, t: int, n: int, tag: bytes, counts: dict) -> dict:
     return {"lanes": b, "t": t, "indices": n, "affine": True,
             "max_abs_err": err,
             "host_match": got == [poly.eval(i).value for i in range(n)],
-            "ms": _time_ms(lambda: ev.horner(com_d, bits_d, True),
-                           TIMED_LAUNCHES),
+            "ms": time_ms(lambda: ev.horner(com_d, bits_d, True),
+                          TIMED_LAUNCHES),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "fp_products": products}
 
@@ -649,6 +666,7 @@ def _curve_kernels(state) -> dict:
     from drand_tpu_torch.crypto.curves import PointG2
     from drand_tpu_torch.ops import msm
     from drand_tpu_torch.ops.engine import _g2_xy, msm_lanes
+    from drand_tpu_torch.tools._common import max_abs_err
 
     dev = state["device"]
     rng = random.Random(SEED + 1)
@@ -662,8 +680,8 @@ def _curve_kernels(state) -> dict:
         np.broadcast_to(gen, (32,) + gen.shape), np.ones(32, np.int32),
         np.ones((32, 64), np.int32))]
     (xy_k, inf_k), (xy_p, inf_p) = msm.msm(*args), msm.msm_plain(*args)
-    masked = {"max_abs_err": max(_max_abs_err(xy_k, xy_p),
-                                 _max_abs_err(inf_k, inf_p)),
+    masked = {"max_abs_err": max(max_abs_err(xy_k, xy_p),
+                                 max_abs_err(inf_k, inf_p)),
               "infinity": bool(inf_k.item())}
     horner = _horner_case(state, rng, counts)
     h_big = _horner_round_case(dev, BIG_T, BIG_N, BIG_TAG, counts)
@@ -706,13 +724,28 @@ def _curve_kernels(state) -> dict:
     return out
 
 
-def _chain(state):
-    """The clean N_ROUNDS-round chain, made once for every phase."""
-    if "chain" not in state:
+def _start_chain(state) -> None:
+    """Sign the clean N_ROUNDS-round chain in a thread, started before the
+    build so that the signing workers (the V1 chain is one worker's ~65 s)
+    run while nvcc and the first kernel checks do; ``_chain`` waits."""
+    def sign():
         t0 = time.perf_counter()
-        state["chain"] = make_chain(N_ROUNDS,
-                                    max(2, min(8, os.cpu_count() or 2)))
+        try:
+            state["chain"] = make_chain(N_ROUNDS, CHAIN_WORKERS)
+        except Exception as e:  # noqa: BLE001 — raised by _chain
+            state["chain_error"] = e
         state["chain_seconds"] = time.perf_counter() - t0
+
+    state["chain_thread"] = threading.Thread(target=sign)
+    state["chain_thread"].start()
+
+
+def _chain(state):
+    """The clean chain, made once for every phase (``_start_chain``)."""
+    state["chain_thread"].join()
+    if "chain_error" in state:
+        raise RuntimeError("signing the chain failed") \
+            from state["chain_error"]
     return state["chain"]
 
 
@@ -836,6 +869,7 @@ def _k5_case(state, rng) -> dict:
     from drand_tpu_torch.ops import field, h2c, wire
     from drand_tpu_torch.ops.engine import _g2_from_words
     from drand_tpu_torch.ops.limb import fp_words, words_to_halves
+    from drand_tpu_torch.tools._common import max_abs_err, time_ms, time_once
 
     dev = state["device"]
     chain = _chain(state)
@@ -851,9 +885,9 @@ def _k5_case(state, rng) -> dict:
     u = torch.from_numpy(u_np).to(dev)
     xy_k, inf_k = wire.hash_to_g2(u)
     field.N_FP_PRODUCTS = 0
-    (xy_p, inf_p), plain_ms = _time_once_ms(lambda: h2c.hash_to_g2_plain(u))
+    (xy_p, inf_p), plain_ms = time_once(lambda: h2c.hash_to_g2_plain(u))
     full = field.N_FP_PRODUCTS / WIRE_LANES
-    err = max(_max_abs_err(xy_k, xy_p), _max_abs_err(inf_k, inf_p))
+    err = max(max_abs_err(xy_k, xy_p), max_abs_err(inf_k, inf_p))
     zero, rnd = len(msgs), len(msgs) + 1
     lanes = list(range(HOST_LANES - 2)) + [zero, rnd]
     xy_h, inf_h = xy_k.cpu().numpy(), inf_k.cpu().numpy()
@@ -890,7 +924,7 @@ def _k5_case(state, rng) -> dict:
             "zero_lanes": 1, "random_lanes": n_rand, "max_abs_err": err,
             "infinity_lanes": int(inf_k.sum().item()),
             "host_lanes": len(lanes), "host_match": bool(host_ok),
-            "ms": _time_ms(lambda: wire.hash_to_g2(u), TIMED_LAUNCHES),
+            "ms": time_ms(lambda: wire.hash_to_g2(u), TIMED_LAUNCHES),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "fp_products_needed_per_lane": needed,
             "fp_products_per_lane_all_branches": full,
@@ -912,6 +946,7 @@ def _k6_case(state, rng) -> dict:
     from drand_tpu_torch.ops import curve as cv, field, h2c, wire
     from drand_tpu_torch.ops.engine import _g2_from_words, decode_sig
     from drand_tpu_torch.ops.limb import words_to_halves
+    from drand_tpu_torch.tools._common import max_abs_err, time_ms, time_once
 
     dev = state["device"]
     chain = _chain(state)
@@ -940,9 +975,9 @@ def _k6_case(state, rng) -> dict:
     sg = torch.from_numpy(sign.astype(np.int32)).to(dev)
     xy_k, ok_k = wire.decompress_g2(x, sg)
     field.N_FP_PRODUCTS = 0
-    (xy_p, ok_p), plain_ms = _time_once_ms(lambda: h2c.decompress_plain(x, sg))
+    (xy_p, ok_p), plain_ms = time_once(lambda: h2c.decompress_plain(x, sg))
     full = field.N_FP_PRODUCTS / WIRE_LANES
-    err = max(_max_abs_err(xy_k, xy_p), _max_abs_err(ok_k, ok_p))
+    err = max(max_abs_err(xy_k, xy_p), max_abs_err(ok_k, ok_p))
     lanes = list(range(6)) + [SPAN_LANES + k for k in (0, 1, 2, 4, 5, 6, 8,
                                                        9, 10, 11)]
     xy_h, ok_h = xy_k.cpu().numpy(), ok_k.cpu().numpy()
@@ -965,8 +1000,8 @@ def _k6_case(state, rng) -> dict:
             "outside_g2": 4, "rejected_by_byte_split": int((~valid).sum()),
             "accepted": int(ok_k.sum().item()), "max_abs_err": err,
             "host_lanes": len(lanes), "host_match": bool(host_ok),
-            "ms": _time_ms(lambda: wire.decompress_g2(x, sg),
-                           TIMED_LAUNCHES),
+            "ms": time_ms(lambda: wire.decompress_g2(x, sg),
+                          TIMED_LAUNCHES),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "fp_products_per_lane_all_branches": full,
             "fp_products_per_lane": products / WIRE_LANES}
@@ -1001,6 +1036,168 @@ def phase_kernels(state) -> dict:
     wire = _wire_kernels(state)
     return {"pairing": pairing, "curve": curve, "wire": wire,
             "launches": _launch_counts()}
+
+
+def _library_chain_ms(step, start) -> float:
+    """ms of a chain of N_ITERS calls of ``step`` from ``start``: the one
+    PyTorch call a step that computes what a probe's step computes (the
+    yardstick; the port never calls it)."""
+    from drand_tpu_torch.tools._common import time_ms
+    from drand_tpu_torch.tools.microbench import N_ITERS
+
+    def chain():
+        v = start
+        for _ in range(N_ITERS):
+            v = step(v)
+        return v
+
+    return time_ms(chain, 2)
+
+
+def _probe_library(dev, rows: int) -> dict:
+    """library_ms of each microbench chain at the fill shape: addcmul for
+    the CUDA-core chains (y + x·y), matmul for bf16, matmul with TF32
+    allowed for f32, _int_mm (after a cast to int8) for int8; none for the
+    wide pair. A call the card or the build refuses raises."""
+    import torch
+
+    from drand_tpu_torch.tools import microbench as mb
+
+    out = {"chain_wide": None}
+    for name in mb.CHAINS:
+        x, y = (t.to(dev) for t in mb.chain_inputs(name, mb.CHAIN_FILL))
+        out[f"chain_{name}"] = _library_chain_ms(
+            lambda v, y=y: torch.addcmul(y, v, y), x)
+    for name in mb.MMAS:
+        a, b = (t.to(dev) for t in mb.mma_inputs(name, rows))
+        key = f"mma_{name}"
+        prev = torch.backends.cuda.matmul.allow_tf32
+        try:
+            if name == "int8_i32":
+                out[key] = _library_chain_ms(
+                    lambda v, a=a: torch._int_mm(v.to(torch.int8), a), b)
+            else:
+                torch.backends.cuda.matmul.allow_tf32 = name == "tf32_f32"
+                out[key] = _library_chain_ms(lambda v, a=a: v @ a, b)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    return out
+
+
+def _probe_row(kernel: str, source: str, replaces: str, rec: dict,
+               ops_s: float, nbytes: int, library_ms) -> dict:
+    """A probe kernel's row of the kernels line: its bound is the larger
+    of ``ops_s`` (its operations at the peak of the unit it uses) and its
+    bytes at the memory rate."""
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return {"name": kernel, "route": "cuda",
+            "source": f"drand_tpu_torch/csrc/{source}", "replaces": replaces,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "library_ms": library_ms}
+
+
+def phase_probes(state) -> dict:
+    """The three probes of ``drand_tpu_torch/tools``. Each tool's run is
+    its main path: the launch counts are set to 0 just before the three
+    runs and read just after, and every probe kernel must have launched.
+    The runs check every kernel against its plain version themselves
+    (and raise); the kernels line gets each kernel at the shape that fills
+    the card, with its bound at the peak of the unit it uses and its
+    library yardstick. The Miller step's row is the catch-up bucket: timed
+    in the tool's run, and held against its plain version and K1 on the
+    kernels phase's lanes, every lane with its own check."""
+    import torch
+
+    from drand_tpu_torch.ops import field
+    from drand_tpu_torch.tools import microbench as mb
+    from drand_tpu_torch.tools import proto_miller_grid as mg
+    from drand_tpu_torch.tools import proto_mxu as pm
+    from drand_tpu_torch.tools._common import max_abs_err, time_once
+
+    dev = state["device"]
+    counters = (mb.LAUNCHES, pm.LAUNCHES, mg.LAUNCHES)
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        bench = mb.run(PROBE_REPS, dev)
+        redc = pm.run(128, 64, dev, reps=PROBE_REPS)
+        grid = mg.run(128, dev, reps=PROBE_REPS)
+    runs_s = time.perf_counter() - t0
+    launches = {k: v for counts in counters for k, v in counts.items()}
+    if not all(launches.values()):
+        raise RuntimeError(f"probe kernels not launched: {launches}")
+    state["probe_launches"] = launches
+
+    fill, rows = bench["fill"], mb.shapes(dev)["fill"][1]
+    n = mb.CHAIN_FILL[0] * mb.CHAIN_FILL[1]
+    library = _probe_library(dev, rows)
+    ops_s = {"int32": mb.N_ITERS * n / INT32_MAD_PER_S,
+             "wide": 2 * mb.N_ITERS * n / INT32_MAD_PER_S,
+             "f32": fill["vpu_f32"]["ops"] / F32_FLOP_PER_S,
+             "bf16": fill["vpu_bf16"]["ops"] / BF16_FLOP_PER_S}
+    for name in (*mb.CHAINS, "wide"):
+        # x, y and the output (the wide pair also its carry), once each
+        nbytes = n * (2 if name == "bf16" else 4) * (4 if name == "wide"
+                                                     else 3)
+        kernel = "chain_i32_kernel" if name == "int32" else \
+            f"chain_{name}_kernel"
+        state["kernels"][f"chain_{name}"] = _probe_row(
+            kernel, "microbench.cu", "tools/microbench.py:58",
+            fill[f"vpu_{name}"], ops_s[name], nbytes,
+            library[f"chain_{name}"])
+    for name, (in_dt, out_dt, _) in mb.MMAS.items():
+        rec = fill[f"mma_{name}"]
+        isz, osz = (torch.empty(0, dtype=d).element_size()
+                    for d in (in_dt, out_dt))
+        nbytes = mb.MMA_DIM * (mb.MMA_DIM * isz + rows * (isz + osz))
+        kernel = {"bf16_f32": "mma_bf16_kernel", "int8_i32": "mma_s8_kernel",
+                  "tf32_f32": "mma_tf32_kernel"}[name]
+        state["kernels"][f"mma_{name}"] = _probe_row(
+            kernel, "microbench.cu", "tools/microbench.py:67", rec,
+            rec["ops"] / TENSOR_OPS_PER_S[name], nbytes, library[f"mma_{name}"])
+
+    rf = redc["fill"]
+    products = rf["cuda"]["iters"] * rf["cuda"]["lanes"]
+    nbytes = 3 * rf["cuda"]["lanes"] * 48           # a, b and the output
+    for key, ops in (
+            ("mont_chain_cuda", products * MAD_PER_FP_PRODUCT / INT32_MAD_PER_S),
+            ("mont_chain_tc",
+             max(products * MAD_PER_PRODUCT_ON_CORES / INT32_MAD_PER_S,
+                 products * TENSOR_OPS_PER_REDC
+                 / TENSOR_OPS_PER_S["int8_i32"]))):
+        state["kernels"][key] = _probe_row(
+            f"{key}_kernel", "mxu_redc.cu", "tools/proto_mxu.py:111",
+            rf[key.rsplit("_", 1)[1]], ops, nbytes, None)
+
+    # the catch-up bucket's checks, every lane its own (the kernels phase)
+    xp, yp, q, k1_out = state["k1_main"]
+    f_k = mg.miller_grid(xp, yp, q)
+    field.N_FP_PRODUCTS = 0
+    f_p, plain_ms = time_once(lambda: mg.miller_grid_plain(xp, yp, q))
+    products = field.N_FP_PRODUCTS
+    err = max_abs_err(f_k, f_p)
+    k1_err = max_abs_err(f_k, k1_out)
+    state["kernels"]["miller_step"] = _probe_row(
+        "miller_step_kernel", "pairing.cu", "tools/proto_miller_grid.py:32",
+        {"max_abs_err": max(err, k1_err), "plain_ms": plain_ms,
+         "ms": grid[xp.shape[0]]["grid_ms"]},
+        products * MAD_PER_FP_PRODUCT / INT32_MAD_PER_S,
+        _nbytes(xp, yp, q, f_k), None)
+    if err or k1_err:
+        raise RuntimeError(f"miller_step: {err} against its plain version, "
+                           f"{k1_err} against K1")
+    return {"runs_seconds": runs_s, "launches": launches,
+            "microbench": bench, "proto_mxu": redc,
+            "proto_miller_grid": {str(b): r for b, r in grid.items()},
+            "miller_step_fp_products_per_check": products / xp.shape[0],
+            "ptxas": mg.ptxas_rows(),
+            "tolerances": {"abs": mb.ABS_TOL,
+                           "rel_to_max_by_steps": mb.REL_TOL}}
 
 
 def _group_key():
@@ -1253,8 +1450,20 @@ def main() -> int:
         return 2
     start = time.perf_counter()
     state = {"device": torch.device("cuda"), "card": nvidia_smi()}
+    _start_chain(state)
+    try:
+        return _run_phases(state, start)
+    finally:
+        state["chain_thread"].join()   # its workers are waited for too
+
+
+def _run_phases(state, start: float) -> int:
+    """Every phase in order, its JSON line, then the closing lines."""
+    import torch
+
     failed = []
     for name, phase in (("build", phase_build), ("kernels", phase_kernels),
+                        ("probes", phase_probes),
                         ("catchup", phase_catchup),
                         ("catchup_wire", phase_catchup_wire),
                         ("live_round", phase_live_round),
@@ -1276,8 +1485,9 @@ def main() -> int:
         return 1
     # launches on each kernel's own main path: the host-prep catch-up span
     # for K1 and K2, the 67-of-100 round (all partials valid) for the MSM
-    # and the Horner, the corrupted wire span for K5 and K6
-    launches = {**state["main_launches"],
+    # and the Horner, the corrupted wire span for K5 and K6, one run of
+    # each probe tool for the probe kernels
+    launches = {**state["main_launches"], **state["probe_launches"],
                 **{k: state["threshold_launches"][k] for k in ("msm",
                                                                "horner")},
                 **{k: state["wire_launches"][k] for k in ("hash_to_g2",

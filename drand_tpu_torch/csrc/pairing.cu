@@ -19,6 +19,17 @@
 // pairing, as final_exp_hard_bl and crypto.pairing.final_exponentiation
 // (canonical=False) compute it) and the lane's verdict.
 //
+// miller_step_kernel replaces the prototype tools/proto_miller_grid.py:
+// _miller_grid_kernel, the Miller loop as a grid of N_MILLER steps with f
+// and T carried in VMEM scratch, which tested whether the loop body was too
+// large for the TPU compiler's register allocation. Here one launch runs
+// one iteration (K1's own miller_iteration) for every lane, f and T live in
+// device memory between launches, the host passes each step's add flag,
+// and the last step writes conj(f): the output equals K1's word for word,
+// and ptxas's registers and spills of the one-iteration body stand beside
+// K1's. Its state (f and T, 432 words a lane) is read and written once a
+// step, a few hundred bytes against some 190 Fp products.
+//
 // Bound: integer multiply-adds (see fp.cuh); inputs and outputs are a few
 // hundred bytes per lane. Design: one thread per lane, blocks of 32 lanes
 // so that a bucket of 512 spreads over 16 SMs; state spills to local
@@ -167,11 +178,8 @@ FP_FN void lines_product(Fp12& L, const Line& a, const Line& b) {
   f2_zero(W_AT(L, 1));
 }
 
-FP_FN void miller_lane(Fp12& f, const Fp* xp, const Fp* yp, const Fp2* xq,
-                       const Fp2* yq) {
-  G2Jac T[NPAIRS];
-  Line l[NPAIRS];
-  Fp12 L;
+// T = Q (Z = 1) on both pairs, f = 1: the state before the first iteration
+FP_INL void miller_init(Fp12& f, G2Jac* T, const Fp2* xq, const Fp2* yq) {
 #pragma unroll
   for (int j = 0; j < NPAIRS; ++j) {
     T[j].x = xq[j];
@@ -180,20 +188,35 @@ FP_FN void miller_lane(Fp12& f, const Fp* xp, const Fp* yp, const Fp2* xq,
     fp_copy(T[j].z.c0, C.one);
   }
   f12_one(f);
-  for (uint32_t i = 0; i < C.n_miller; ++i) {
-    f12_sqr(f, f);
+}
+
+// One iteration of the Miller loop: f^2 times the tangent lines, then, on
+// a set bit of |x|, times the chord lines (K1's loop body; the step kernel
+// runs one a launch)
+FP_INL void miller_iteration(Fp12& f, G2Jac* T, const Fp* xp, const Fp* yp,
+                             const Fp2* xq, const Fp2* yq, bool add) {
+  Line l[NPAIRS];
+  Fp12 L;
+  f12_sqr(f, f);
 #pragma unroll 1
-    for (int j = 0; j < NPAIRS; ++j) dbl_step(T[j], l[j], xp[j], yp[j]);
+  for (int j = 0; j < NPAIRS; ++j) dbl_step(T[j], l[j], xp[j], yp[j]);
+  lines_product(L, l[0], l[1]);
+  f12_mul(f, f, L);
+  if (add) {
+#pragma unroll 1
+    for (int j = 0; j < NPAIRS; ++j)
+      add_step(T[j], l[j], xq[j], yq[j], xp[j], yp[j]);
     lines_product(L, l[0], l[1]);
     f12_mul(f, f, L);
-    if (C.miller_flags[i]) {
-#pragma unroll 1
-      for (int j = 0; j < NPAIRS; ++j)
-        add_step(T[j], l[j], xq[j], yq[j], xp[j], yp[j]);
-      lines_product(L, l[0], l[1]);
-      f12_mul(f, f, L);
-    }
   }
+}
+
+FP_FN void miller_lane(Fp12& f, const Fp* xp, const Fp* yp, const Fp2* xq,
+                       const Fp2* yq) {
+  G2Jac T[NPAIRS];
+  miller_init(f, T, xq, yq);
+  for (uint32_t i = 0; i < C.n_miller; ++i)
+    miller_iteration(f, T, xp, yp, xq, yq, C.miller_flags[i] != 0);
   f12_conj(f, f);  // x < 0
 }
 
@@ -303,6 +326,66 @@ final_exp_verdict_kernel(const uint32_t* __restrict__ f,
   ok[lane] = one ? 1 : 0;
 }
 
+#define T_WORDS (NPAIRS * 3 * 2 * NW)
+
+// One Miller iteration for every lane; state f (n, F12_WORDS) and T (n,
+// NPAIRS, 3, 2, 12) in device memory; `first` starts from T = Q, f = 1,
+// `last` writes conj(f) to `out` instead of the state.
+__global__ void __launch_bounds__(LANES_PER_BLOCK)
+miller_step_kernel(const uint32_t* __restrict__ xp,
+                   const uint32_t* __restrict__ yp,
+                   const uint32_t* __restrict__ q, uint32_t* __restrict__ f_st,
+                   uint32_t* __restrict__ t_st, uint32_t* __restrict__ out,
+                   int n, int first, int add, int last) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  Fp px[NPAIRS], py[NPAIRS];
+  Fp2 qx[NPAIRS], qy[NPAIRS];
+#pragma unroll
+  for (int j = 0; j < NPAIRS; ++j) {
+    load_fp(px[j], xp + (lane * NPAIRS + j) * NW);
+    load_fp(py[j], yp + (lane * NPAIRS + j) * NW);
+    const uint32_t* qj = q + (lane * NPAIRS + j) * 4 * NW;
+    load_fp(qx[j].c0, qj);
+    load_fp(qx[j].c1, qj + NW);
+    load_fp(qy[j].c0, qj + 2 * NW);
+    load_fp(qy[j].c1, qj + 3 * NW);
+  }
+  Fp12 f;
+  G2Jac T[NPAIRS];
+  uint32_t* ts = t_st + lane * T_WORDS;
+  if (first) {
+    miller_init(f, T, qx, qy);
+  } else {
+    load_f12(f, f_st + lane * F12_WORDS);
+#pragma unroll 1
+    for (int j = 0; j < NPAIRS; ++j) {
+      Fp2* c[3] = {&T[j].x, &T[j].y, &T[j].z};
+#pragma unroll 1
+      for (int k = 0; k < 3; ++k) {
+        load_fp(c[k]->c0, ts + ((j * 3 + k) * 2 + 0) * NW);
+        load_fp(c[k]->c1, ts + ((j * 3 + k) * 2 + 1) * NW);
+      }
+    }
+  }
+  miller_iteration(f, T, px, py, qx, qy, add != 0);
+  if (last) {
+    f12_conj(f, f);  // x < 0
+    store_f12(out + lane * F12_WORDS, f);
+    return;
+  }
+  store_f12(f_st + lane * F12_WORDS, f);
+#pragma unroll 1
+  for (int j = 0; j < NPAIRS; ++j) {
+    const Fp2* c[3] = {&T[j].x, &T[j].y, &T[j].z};
+#pragma unroll 1
+    for (int k = 0; k < 3; ++k) {
+      store_fp(ts + ((j * 3 + k) * 2 + 0) * NW, c[k]->c0);
+      store_fp(ts + ((j * 3 + k) * 2 + 1) * NW, c[k]->c1);
+    }
+  }
+}
+
 static dim3 grid_for(int n) {
   return dim3((n + LANES_PER_BLOCK - 1) / LANES_PER_BLOCK);
 }
@@ -328,6 +411,25 @@ extern "C" int final_exp_verdict_launch(const void* consts, int n_words,
   if (e != cudaSuccess) return (int)e;
   final_exp_verdict_kernel<<<grid_for(n), LANES_PER_BLOCK, 0, s>>>(
       (const uint32_t*)f, (uint32_t*)gt, (int32_t*)ok, n);
+  return (int)cudaGetLastError();
+}
+
+// One step of miller_step_kernel; the constant buffer is copied on the
+// first step only (constant memory keeps it for the later ones).
+extern "C" int miller_step_launch(const void* consts, int n_words,
+                                  const void* xp, const void* yp,
+                                  const void* q, void* f_state, void* t_state,
+                                  void* out, int n, int first, int add,
+                                  int last, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (first) {
+    cudaError_t e = load_consts(consts, n_words, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  miller_step_kernel<<<grid_for(n), LANES_PER_BLOCK, 0, s>>>(
+      (const uint32_t*)xp, (const uint32_t*)yp, (const uint32_t*)q,
+      (uint32_t*)f_state, (uint32_t*)t_state, (uint32_t*)out, n, first, add,
+      last);
   return (int)cudaGetLastError();
 }
 

@@ -8,8 +8,8 @@ fresh checkout builds everything the first time a kernel is launched and
 reuses the library while the sources are unchanged.
 
 Every launching C entry point returns ``cudaGetLastError()``; the
-wrappers in ``ops/pairing.py``, ``ops/msm.py``, ``ops/eval.py`` and
-``ops/wire.py`` raise when it is not zero.
+wrappers in ``ops/pairing.py``, ``ops/msm.py``, ``ops/eval.py``,
+``ops/wire.py`` and the probes of ``tools/`` raise when it is not zero.
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ _ENTRY_POINTS = {
     "pairing": {
         "miller_loop_launch": ["p", "i", "p", "p", "p", "p", "i", "p"],
         "final_exp_verdict_launch": ["p", "i", "p", "p", "p", "i", "p"],
+        "miller_step_launch": ["p", "i", "p", "p", "p", "p", "p", "p", "i",
+                               "i", "i", "i", "p"],
     },
     "msm": {
         "msm_scratch_words": ["i"],
@@ -47,6 +49,14 @@ _ENTRY_POINTS = {
         "hash_to_g2_launch": ["p", "i", "p", "i", "p", "p", "p", "i", "p"],
         "decompress_g2_launch": ["p", "i", "p", "i", "p", "p", "p", "p", "i",
                                  "p"],
+    },
+    "microbench": {
+        "vpu_chain_launch": ["i", "p", "p", "p", "p", "i", "i", "p"],
+        "mma_chain_launch": ["i", "p", "p", "p", "i", "i", "p"],
+    },
+    "mxu_redc": {
+        "mont_chain_launch": ["p", "i", "i", "p", "p", "p", "p", "p", "i", "i",
+                              "p"],
     },
 }
 
@@ -162,6 +172,54 @@ def library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     return _load(name, _finish(name, _start(name)))
+
+
+def info(name: str) -> dict | None:
+    """Build time and ptxas's registers and spills of a loaded library,
+    or None before it is built."""
+    return _INFO.get(name)
+
+
+def _cuobjdump() -> str | None:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    return str(cand) if cand.exists() else None
+
+
+def sass_count(counts: dict, kernel: str, prefix: str, part: str = "") -> int:
+    """Instructions of ``kernel`` (a substring of the mangled name) whose
+    opcode starts with ``prefix`` and contains ``part``."""
+    return sum(n for fn, ops in counts.items() if kernel in fn
+               for op, n in ops.items()
+               if op.startswith(prefix) and part in op)
+
+
+def sass_counts(name: str) -> dict | None:
+    """{kernel function (mangled): {opcode with its modifiers: count}} of
+    the built library's SASS (``cuobjdump -sass``), or None where the
+    toolkit has no cuobjdump."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    library(name)
+    text = subprocess.run([tool, "-sass", _INFO[name]["library"]],
+                          capture_output=True,
+                          text=True, check=True).stdout
+    out: dict[str, dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = out.setdefault(m.group(1), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if m and current is not None:
+            current[m.group(1)] = current.get(m.group(1), 0) + 1
+    return out
 
 
 def build_all() -> dict:
