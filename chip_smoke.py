@@ -24,8 +24,11 @@ line each:
                    the fused round's form (Z = 1) on the inputs of the
                    67-of-100 and 6-of-10 rounds; K5 (hash to G2) and K6
                    (signature decompression) at 512 lanes: the u-values
-                   of 500 messages of the chain, u = 0 and random field
-                   elements; valid signatures with both sort flags, x off
+                   of 500 messages of the chain, one warp of K5 checks
+                   whose maps take different branches (u = 0 first) and
+                   random field elements, K5 also launched alone at 1,
+                   3, 4 and 128 lanes and on that warp; valid signatures
+                   with both sort flags, x off
                    the curve, points of E2 outside G2 and rows the byte
                    split rejects; 16 lanes of each also against the host;
                    the MSM at the wire-RLC shape (512 lanes × 128 bits)
@@ -277,9 +280,15 @@ def phase_build(state) -> dict:
     if set(kernels) != want:
         raise RuntimeError(f"ptxas reported {sorted(kernels)}, want "
                            f"{sorted(want)}")
+    state["ptxas"] = kernels
+    # K5's out-of-line field operations (csrc/h2c.cu k5_*): their frames
+    # are not in the kernel's own ptxas line
+    state["k5_callees"] = {f: v for f, v in infos["h2c"]["functions"].items()
+                           if "k5_" in f}
     return {"build_seconds": {k: v["build_seconds"] for k, v in infos.items()},
             "wall_seconds": time.perf_counter() - t0,
-            "ptxas": kernels, "card": state["card"]}
+            "ptxas": kernels, "k5_callees": state["k5_callees"],
+            "card": state["card"]}
 
 
 def _kernel_inputs(device, n_lanes: int):
@@ -846,26 +855,66 @@ def _hash_to_g2_needed_products(u) -> dict:
             "per_lane": 2 * per_map + add + clear + affine}
 
 
+def _first_candidate_square(uk) -> bool:
+    """Whether SSWU's first candidate g'(x1) is a square for the host Fp2
+    value ``uk`` (x1 = B/(Z·A) where tv = 0): the map then takes no
+    second square root."""
+    from drand_tpu_torch.crypto.fields import Fp2
+    from drand_tpu_torch.crypto.hash_to_curve import (
+        _B_OVER_ZA, _MINUS_B_OVER_A, _Z_SSWU, _g_prime)
+
+    zu2 = _Z_SSWU * uk.square()
+    tv = zu2.square() + zu2
+    x1 = _B_OVER_ZA if tv.is_zero() else \
+        _MINUS_B_OVER_A * (Fp2.one() + tv.inverse())
+    return _g_prime(x1).is_square()
+
+
+def _mixed_warp(rng):
+    """Four adjacent checks (one warp of K5: 32 threads, eight a check)
+    whose maps take different branches: u = 0 in both maps (tv = 0), both
+    first candidates squares, neither, and one of each (the two
+    half-groups of one check diverge)."""
+    import numpy as np
+
+    from drand_tpu_torch.crypto.fields import P, Fp2
+    from drand_tpu_torch.ops.limb import fp_words
+
+    sq, nsq = [], []
+    while len(sq) < 3 or len(nsq) < 3:
+        x = Fp2(rng.randrange(P), rng.randrange(P))
+        (sq if _first_candidate_square(x) else nsq).append(x)
+    zero = Fp2(0, 0)
+    rows = [(zero, zero), (sq[0], sq[1]), (nsq[0], nsq[1]), (sq[2], nsq[2])]
+    return np.array([[[fp_words(x.c0), fp_words(x.c1)] for x in row]
+                     for row in rows], np.int32)
+
+
 def _k5_case(state, rng) -> dict:
     """K5 against its plain version on WIRE_LANES lanes — the u-values of
-    the first 500 messages of the chain (V1 and V2), one lane of u = 0
-    (tv = 0 in both maps) and random field elements — word for word on
-    every lane, and HOST_LANES lanes against the host: ``hash_to_g2`` of
-    the message, and the host maps summed and cleared for the u = 0 and
-    a random lane. The bound counts what hash-to-G2 needs
+    the first 500 messages of the chain (V1 and V2), one warp of checks
+    whose maps take different branches (``_mixed_warp``, its first u = 0:
+    tv = 0 in both maps) and random field elements — word for word on
+    every lane; K5 launched alone at n = 1, 3, 4 and 128 (partly filled
+    warps) and on the mixed warp, word for word against the same plain
+    rows; HOST_LANES lanes against the host: ``hash_to_g2`` of the
+    message, and the host maps summed and cleared for the u = 0 lane and
+    two random ones. The bound counts what hash-to-G2 needs
     (``_hash_to_g2_needed_products``: one exponentiation per map, no
     inversion but the final one). Beside it, the Fp products K5 performs
     on this run's lanes: the plain version's count (it takes every
-    branch) less the second square root of each map whose first
-    candidate is a square and the inversion where tv = 0."""
+    branch, both square roots of each map as K5 does) less, in each warp
+    of 32 / G checks, the inversion of every map where no map of the warp
+    needs it (a warp runs a branch where any of its maps takes it), and
+    the count the lanes' own branches need (one root where the first
+    candidate is a square, no inversion where tv = 0)."""
     import numpy as np
     import torch
 
     from drand_tpu_torch.chain import beacon as cb
-    from drand_tpu_torch.crypto.fields import P, Fp2
+    from drand_tpu_torch.crypto.fields import P
     from drand_tpu_torch.crypto.hash_to_curve import (
-        _B_OVER_ZA, _MINUS_B_OVER_A, _H_CLEAR, _Z_SSWU, _g_prime, hash_to_g2,
-        map_to_curve_g2)
+        _H_CLEAR, _Z_SSWU, hash_to_g2, map_to_curve_g2)
     from drand_tpu_torch.ops import field, h2c, wire
     from drand_tpu_torch.ops.engine import _g2_from_words
     from drand_tpu_torch.ops.limb import fp_words, words_to_halves
@@ -877,19 +926,30 @@ def _k5_case(state, rng) -> dict:
     for bcn in chain[:SPAN_LANES // 2]:
         msgs += [cb.message(bcn.round, bcn.previous_sig),
                  cb.message_v2(bcn.round)]
-    n_rand = WIRE_LANES - len(msgs) - 1
+    group = wire.group_size()
+    warp = 32 // group
+    mixed = _mixed_warp(rng)
+    n_rand = WIRE_LANES - len(msgs) - len(mixed)
     rand = np.array([[[fp_words(rng.randrange(P)), fp_words(rng.randrange(P))]
                       for _ in range(2)] for _ in range(n_rand)], np.int32)
-    u_np = np.concatenate([h2c.msgs_to_u(msgs),
-                           np.zeros((1, 2, 2, 12), np.int32), rand])
+    u_np = np.concatenate([h2c.msgs_to_u(msgs), mixed, rand])
+    zero = len(msgs)                  # warp-aligned: 500 = 125 warps of 4
+    if zero % warp or len(mixed) != warp:
+        raise RuntimeError(f"the mixed warp is not one warp at {zero}")
     u = torch.from_numpy(u_np).to(dev)
     xy_k, inf_k = wire.hash_to_g2(u)
     field.N_FP_PRODUCTS = 0
     (xy_p, inf_p), plain_ms = time_once(lambda: h2c.hash_to_g2_plain(u))
     full = field.N_FP_PRODUCTS / WIRE_LANES
     err = max(max_abs_err(xy_k, xy_p), max_abs_err(inf_k, inf_p))
-    zero, rnd = len(msgs), len(msgs) + 1
-    lanes = list(range(HOST_LANES - 2)) + [zero, rnd]
+    sizes_err = {}
+    for label, lo, hi in (("n1", 0, 1), ("n3", 0, 3), ("n4", 0, 4),
+                          ("n128", 0, 128), ("mixed_warp", zero, zero + warp)):
+        xy_n, inf_n = wire.hash_to_g2(u[lo:hi].contiguous())
+        sizes_err[label] = max(max_abs_err(xy_n, xy_p[lo:hi]),
+                               max_abs_err(inf_n, inf_p[lo:hi]))
+    lanes = list(range(HOST_LANES - 3)) + [zero, zero + warp - 1,
+                                           zero + warp]
     xy_h, inf_h = xy_k.cpu().numpy(), inf_k.cpu().numpy()
     host_ok = True
     for j in lanes:
@@ -902,33 +962,42 @@ def _k5_case(state, rng) -> dict:
         got = None if inf_h[j] else _g2_from_words(xy_h[j])
         host_ok &= (got is None) == want.is_infinity() and (
             got is None or got == want)
-    # what this run's lanes need (see the docstring)
+    # what this run's lanes need and what K5 performs (see the docstring)
     one = words_to_halves(u[:1, 0])
     sqrt_cost = _products(lambda: h2c.sqrt_f2(one))
     inv_cost = _products(lambda: field.f2_inv(one))
-    skipped = 0
-    for row in u_np:
-        for k in range(2):
-            uk = _f2_of(row[k])
-            zu2 = _Z_SSWU * uk.square()
-            tv = zu2.square() + zu2
-            x1 = _B_OVER_ZA if tv.is_zero() else \
-                _MINUS_B_OVER_A * (Fp2.one() + tv.inverse())
-            skipped += sqrt_cost * _g_prime(x1).is_square()
-            skipped += inv_cost * tv.is_zero()
-    products = full * WIRE_LANES - skipped
+    square = np.array([[_first_candidate_square(_f2_of(row[k]))
+                        for k in range(2)] for row in u_np])
+    zu2 = [[_Z_SSWU * _f2_of(row[k]).square() for k in range(2)]
+           for row in u_np]
+    tv_zero = np.array([[(z.square() + z).is_zero() for z in row]
+                        for row in zu2])
+    own = sqrt_cost * square.sum() + inv_cost * tv_zero.sum()
+    skipped = sum(tv_zero[w0:w0 + warp].size * inv_cost
+                  * tv_zero[w0:w0 + warp].all()
+                  for w0 in range(0, WIRE_LANES, warp))
     needed = _hash_to_g2_needed_products(u)
     bound, by = _bound_ms(needed["per_lane"] * WIRE_LANES,
                           _nbytes(u, xy_k, inf_k))
+    ms = time_ms(lambda: wire.hash_to_g2(u), TIMED_LAUNCHES)
+    u128, umix = u[:128].contiguous(), u[zero:zero + warp].contiguous()
     return {"lanes": WIRE_LANES, "message_lanes": len(msgs),
-            "zero_lanes": 1, "random_lanes": n_rand, "max_abs_err": err,
+            "mixed_warp_lanes": len(mixed), "zero_lanes": 1,
+            "random_lanes": n_rand, "group": group, "max_abs_err": err,
+            "sizes_err": sizes_err,
             "infinity_lanes": int(inf_k.sum().item()),
             "host_lanes": len(lanes), "host_match": bool(host_ok),
-            "ms": time_ms(lambda: wire.hash_to_g2(u), TIMED_LAUNCHES),
+            "ms": ms,
+            "ms_at_128": time_ms(lambda: wire.hash_to_g2(u128),
+                                 TIMED_LAUNCHES),
+            "ms_at_4": time_ms(lambda: wire.hash_to_g2(umix),
+                               TIMED_LAUNCHES),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / ms,
             "fp_products_needed_per_lane": needed,
             "fp_products_per_lane_all_branches": full,
-            "fp_products_per_lane": products / WIRE_LANES}
+            "fp_products_per_lane": full - skipped / WIRE_LANES,
+            "fp_products_per_lane_own_branches": full - own / WIRE_LANES}
 
 
 def _k6_case(state, rng) -> dict:
@@ -1022,9 +1091,18 @@ def _wire_kernels(state) -> dict:
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None}
+    ptx = state["ptxas"]["hash_to_g2_kernel"]
+    state["kernels"]["hash_to_g2"].update(
+        group=k5["group"], registers=ptx["registers"],
+        stack_bytes=ptx["stack_bytes"],
+        callee_stack_bytes=max((v["stack_bytes"]
+                                for v in state["k5_callees"].values()),
+                               default=0),
+        share_of_bound=k5["bound_ms"] / k5["ms"],
+        ms_at_128=k5["ms_at_128"], ms_at_4=k5["ms_at_4"])
     out = {"tolerance": 0, "hash_to_g2": k5, "decompress_g2": k6}
     if (k5["max_abs_err"] or k6["max_abs_err"] or not k5["host_match"]
-            or not k6["host_match"]
+            or not k6["host_match"] or any(k5["sizes_err"].values())
             or not 0 < k6["sort_flags_set"] < SPAN_LANES):
         raise RuntimeError(f"wire kernel mismatch: {out}")
     return out

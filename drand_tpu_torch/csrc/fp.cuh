@@ -13,12 +13,14 @@
 //
 // What bounds it on an H100: integer multiply-adds. One Fp product is 288
 // 32x32->64 multiply-adds (144 for the product, 144 for the reduction);
-// there is no memory traffic to speak of. The design keeps one lane's
+// there is no memory traffic to speak of. This tower keeps one lane's
 // state in one thread and every tower function out of line
 // (__noinline__), which keeps the kernels small enough to compile in
 // seconds; its cost is register spills and call overhead, measured in
-// PERF.md and left for a later change (several threads per lane, PTX
-// carry chains).
+// PERF.md. K1, K2, K6, the MSM and the Horner run on it. K5 runs on
+// fp_group.cuh instead: a group of threads per check, each Fp value's
+// words spread over four threads (csrc/h2c.cu); the other kernels wait
+// for the same redesign (ROADMAP, queue 2).
 //
 // Constants (p, -p^-1 mod 2^32, R mod p, the Frobenius gamma rows and the
 // exponent bit tables) are NOT written here: ops/pairing.py computes them

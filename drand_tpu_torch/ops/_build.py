@@ -46,6 +46,7 @@ _ENTRY_POINTS = {
                                "i", "p"],
     },
     "h2c": {
+        "hash_to_g2_group": [],
         "hash_to_g2_launch": ["p", "i", "p", "i", "p", "p", "p", "i", "p"],
         "decompress_g2_launch": ["p", "i", "p", "i", "p", "p", "p", "p", "i",
                                  "p"],
@@ -112,6 +113,31 @@ def parse_ptxas(log: str) -> dict:
     return out
 
 
+def parse_ptxas_functions(log: str) -> dict:
+    """Per device function that is not an entry (an out-of-line callee):
+    its stack frame and spill stores/loads (bytes) from ``nvcc -Xptxas
+    -v`` output. A kernel's own line leaves these out."""
+    out: dict[str, dict] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = None
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current is not None:
+            out[current] = {"stack_bytes": int(m.group(1)),
+                            "spill_store_bytes": int(m.group(2)),
+                            "spill_load_bytes": int(m.group(3))}
+            current = None
+    return out
+
+
 def _paths(name: str) -> tuple[Path, Path]:
     out_dir = BUILD_DIR / _source_hash(name)
     return out_dir / f"lib{name}.so", out_dir / f"{name}.ptxas.log"
@@ -149,9 +175,12 @@ def _finish(name: str, started) -> dict:
         os.replace(tmp, lib)
     text = log.read_text()
     m = re.match(r"# build_seconds ([0-9.]+)", text)
+    kernels = parse_ptxas(text)
     return {"library": str(lib),
             "build_seconds": float(m.group(1)) if m else None,
-            "kernels": parse_ptxas(text)}
+            "kernels": kernels,
+            "functions": {f: v for f, v in parse_ptxas_functions(text).items()
+                          if f not in kernels}}
 
 
 def _load(name: str, info: dict) -> ctypes.CDLL:

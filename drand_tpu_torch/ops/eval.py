@@ -22,13 +22,11 @@ are then its affine coordinates).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import curve as cv
 from .limb import NWORDS, halves_to_words, words_to_halves
-from .pairing import _check, _consts_on, _ptr, _raise_on
+from .pairing import _check, _consts_on, _launch_on, _ptr, _raise_on
 
 # Launches of the Horner kernel on the card (plain int).
 LAUNCHES = {"horner": 0}
@@ -82,10 +80,11 @@ def horner(commits: torch.Tensor, bits: torch.Tensor, affine: bool = False):
     inf = torch.empty((b,), dtype=torch.int32, device=commits.device)
     consts = _consts_on(commits.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(commits.device).cuda_stream
-    err = lib.eval_horner_launch(_ptr(consts), consts.numel(), _ptr(commits),
-                                 t, _ptr(bits), nbits, int(affine), _ptr(xyz),
-                                 _ptr(inf), b, ctypes.c_void_p(stream))
+    with _launch_on(commits) as stream:
+        err = lib.eval_horner_launch(_ptr(consts), consts.numel(),
+                                     _ptr(commits), t, _ptr(bits), nbits,
+                                     int(affine), _ptr(xyz), _ptr(inf), b,
+                                     stream)
     _raise_on(err, "eval_horner_kernel")
     LAUNCHES["horner"] += 1
     return xyz, inf

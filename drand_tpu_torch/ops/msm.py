@@ -23,13 +23,11 @@ as ONE in ``LAUNCHES["msm"]``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import curve as cv
 from .limb import NWORDS, halves_to_words, words_to_halves
-from .pairing import _check, _consts_on, _ptr, _raise_on
+from .pairing import _check, _consts_on, _launch_on, _ptr, _raise_on
 
 # Launches of the MSM on the card (plain int; counted where launched).
 LAUNCHES = {"msm": 0}
@@ -80,10 +78,10 @@ def msm(pts: torch.Tensor, mask: torch.Tensor, bits: torch.Tensor):
                           device=pts.device)
     out = torch.empty(4 * NWORDS + 1, dtype=torch.int32, device=pts.device)
     consts = _consts_on(pts.device)
-    stream = torch.cuda.current_stream(pts.device).cuda_stream
-    err = lib.msm_launch(_ptr(consts), consts.numel(), _ptr(pts), _ptr(mask),
-                         _ptr(bits), nbits, _ptr(scratch), scratch.numel(),
-                         _ptr(out), b, ctypes.c_void_p(stream))
+    with _launch_on(pts) as stream:
+        err = lib.msm_launch(_ptr(consts), consts.numel(), _ptr(pts),
+                             _ptr(mask), _ptr(bits), nbits, _ptr(scratch),
+                             scratch.numel(), _ptr(out), b, stream)
     _raise_on(err, "msm kernels")
     LAUNCHES["msm"] += 1
     return out[:4 * NWORDS].view(XY_SHAPE), out[4 * NWORDS:]

@@ -29,6 +29,7 @@ canonical pairing product (the Hayashida chain, as
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -240,6 +241,16 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
+@contextlib.contextmanager
+def _launch_on(t: torch.Tensor):
+    """Make the card that holds ``t`` the current device for a launch and
+    yield its current stream (a ctypes pointer): the C entry points copy
+    constants and launch on the current device, which is otherwise the
+    calling thread's, not the tensor's."""
+    with torch.cuda.device(t.device):
+        yield ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
@@ -268,10 +279,9 @@ def miller_loop(xp: torch.Tensor, yp: torch.Tensor,
         return f
     consts = _consts_on(xp.device)
     lib = _kernels()
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
-    err = lib.miller_loop_launch(_ptr(consts), consts.numel(), _ptr(xp),
-                                 _ptr(yp), _ptr(q), _ptr(f), b,
-                                 ctypes.c_void_p(stream))
+    with _launch_on(xp) as stream:
+        err = lib.miller_loop_launch(_ptr(consts), consts.numel(), _ptr(xp),
+                                     _ptr(yp), _ptr(q), _ptr(f), b, stream)
     _raise_on(err, "miller_loop_kernel")
     LAUNCHES["miller_loop"] += 1
     return f
@@ -291,10 +301,10 @@ def final_exp_verdict(f: torch.Tensor):
         return gt, ok
     consts = _consts_on(f.device)
     lib = _kernels()
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    err = lib.final_exp_verdict_launch(_ptr(consts), consts.numel(), _ptr(f),
-                                       _ptr(gt), _ptr(ok), b,
-                                       ctypes.c_void_p(stream))
+    with _launch_on(f) as stream:
+        err = lib.final_exp_verdict_launch(_ptr(consts), consts.numel(),
+                                           _ptr(f), _ptr(gt), _ptr(ok), b,
+                                           stream)
     _raise_on(err, "final_exp_verdict_kernel")
     LAUNCHES["final_exp_verdict"] += 1
     return gt, ok

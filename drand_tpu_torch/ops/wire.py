@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``ops/pallas_wire.py``:
 
 - ``hash_to_g2`` (K5) replaces, fused, ``_map_kernel`` (×2),
   ``_ptadd_affine_kernel``, ``_mulx_kernel`` (×2) and
-  ``_clear_glue_kernel`` — the chain of ``_hash_msgs_pl``;
+  ``_clear_glue_kernel`` — the chain of ``_hash_msgs_pl`` — with a group
+  of eight threads on each check (``csrc/fp_group.cuh``);
 - ``decompress_g2`` (K6) replaces ``_sig_kernel`` (``_sig_pl``);
 - ``verify_wire_prepared`` is ``_wire_verify_pl``: K6, K5, then K1 and
   K2 of ``ops/pairing.py``, verdict ``pair_ok & sig_ok & ~minf``;
@@ -29,15 +30,13 @@ Layouts (int32 words of canonical Montgomery values, ``ops/limb.py``):
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import msm as msm_ops
 from . import pairing
 from .h2c import decompress_plain, h2c_consts, hash_to_g2_plain
 from .limb import NWORDS
-from .pairing import _check, _consts_on, _ptr, _raise_on
+from .pairing import _check, _consts_on, _launch_on, _ptr, _raise_on
 
 # Launch counts of the CUDA kernels (plain ints; counted where launched).
 LAUNCHES = {"hash_to_g2": 0, "decompress_g2": 0}
@@ -61,7 +60,9 @@ def _lib():
 
 
 def hash_to_g2(u: torch.Tensor):
-    """K5: u (n, 2, 2, 12) -> (xy (n, 2, 2, 12), inf (n,) int32)."""
+    """K5: u (n, 2, 2, 12) -> (xy (n, 2, 2, 12), inf (n,) int32). On the
+    card each check runs on a group of ``group_size()`` threads; the launch
+    sizes its grid from n × that many threads, in warps of four checks."""
     n = u.shape[0]
     if n < 1:
         raise ValueError("hash_to_g2: needs n >= 1 lanes")
@@ -73,14 +74,20 @@ def hash_to_g2(u: torch.Tensor):
     xy = torch.empty((n, 2, 2, NWORDS), dtype=torch.int32, device=u.device)
     inf = torch.empty((n,), dtype=torch.int32, device=u.device)
     consts, hconsts = _consts_on(u.device), _hconsts_on(u.device)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = _lib().hash_to_g2_launch(_ptr(consts), consts.numel(),
-                                   _ptr(hconsts), hconsts.numel(), _ptr(u),
-                                   _ptr(xy), _ptr(inf), n,
-                                   ctypes.c_void_p(stream))
+    with _launch_on(u) as stream:
+        err = _lib().hash_to_g2_launch(_ptr(consts), consts.numel(),
+                                       _ptr(hconsts), hconsts.numel(),
+                                       _ptr(u), _ptr(xy), _ptr(inf), n,
+                                       stream)
     _raise_on(err, "hash_to_g2_kernel")
     LAUNCHES["hash_to_g2"] += 1
     return xy, inf
+
+
+def group_size() -> int:
+    """Threads per check of the built K5 (``K5_GROUP`` of csrc/h2c.cu);
+    needs the card's toolkit, since it builds the library."""
+    return int(_lib().hash_to_g2_group())
 
 
 def decompress_g2(x: torch.Tensor, sign: torch.Tensor):
@@ -97,11 +104,11 @@ def decompress_g2(x: torch.Tensor, sign: torch.Tensor):
     xy = torch.empty((n, 2, 2, NWORDS), dtype=torch.int32, device=x.device)
     ok = torch.empty((n,), dtype=torch.int32, device=x.device)
     consts, hconsts = _consts_on(x.device), _hconsts_on(x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().decompress_g2_launch(_ptr(consts), consts.numel(),
-                                      _ptr(hconsts), hconsts.numel(),
-                                      _ptr(x), _ptr(sign), _ptr(xy), _ptr(ok),
-                                      n, ctypes.c_void_p(stream))
+    with _launch_on(x) as stream:
+        err = _lib().decompress_g2_launch(_ptr(consts), consts.numel(),
+                                          _ptr(hconsts), hconsts.numel(),
+                                          _ptr(x), _ptr(sign), _ptr(xy),
+                                          _ptr(ok), n, stream)
     _raise_on(err, "decompress_g2_kernel")
     LAUNCHES["decompress_g2"] += 1
     return xy, ok
