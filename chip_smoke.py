@@ -16,23 +16,29 @@ line each:
                    K1 (Miller loop) and K2 (final exponentiation +
                    verdict) at 512 and 128 lanes; the G2 MSM with GLS4
                    digit scalars at 512 lanes and with 255-bit scalars at
-                   128 lanes (its own point and scalar on every lane, two
-                   lanes alike so that the fold doubles, masked lanes)
-                   and at the 6-of-10 round's 32 lanes, and on an
-                   all-masked input; the G1 Horner at 128 lanes, t = 65,
-                   per-lane 11-bit indices, in both output forms, and in
-                   the fused round's form (Z = 1) on the inputs of the
-                   67-of-100 and 6-of-10 rounds; K5 (hash to G2) and K6
-                   (signature decompression) at 512 lanes: the u-values
-                   of 500 messages of the chain, one warp of K5 checks
-                   whose maps take different branches (u = 0 first) and
-                   random field elements, K5 also launched alone at 1,
-                   3, 4 and 128 lanes and on that warp; valid signatures
-                   with both sort flags, x off
-                   the curve, points of E2 outside G2 and rows the byte
-                   split rejects; 16 lanes of each also against the host;
-                   the MSM at the wire-RLC shape (512 lanes × 128 bits)
-                   and K1/K2 at the combined row's bucket of 4;
+                   128 lanes (its own point and scalar on every lane,
+                   lanes alike so that the folds double, masked lanes),
+                   at the 6-of-10 round's 32 lanes, at the wire-RLC
+                   combine's two sums of 512 lanes × 128 bits in one
+                   stacked call (also against one call per sum), at n =
+                   1, 3, 5 and 33, on a warp whose lanes' bits differ at
+                   every step, with a zero scalar, with equal points in
+                   one warp and two equal blocks, and all masked; the G1
+                   Horner at 128 lanes, t = 65, per-lane 11-bit indices,
+                   in both output forms, and in the fused round's form
+                   (Z = 1) on the inputs of the 67-of-100 and 6-of-10
+                   rounds; K5 (hash to G2) and K6 (signature
+                   decompression) at 512 lanes: the u-values of 500
+                   messages of the chain, one warp of K5 checks whose
+                   maps take different branches (u = 0 first) and random
+                   field elements, K5 also launched alone at 1, 3, 4 and
+                   128 lanes and on that warp; 500 signatures of the
+                   chain, two of them (both sort flags) in one warp of K6
+                   checks with x off the curve, points of E2 outside G2
+                   and rows the byte split rejects, and more of those, K6
+                   also launched alone at 1, 3, 4 and 128 lanes and on
+                   that warp; 22 lanes of K6 and 16 of K5 also against
+                   the host; K1/K2 at the combined row's bucket of 4;
 3. ``probes``    — the card's own probes (``drand_tpu_torch/tools``), each
                    tool's run its main path: ``microbench`` (CUDA-core
                    chains in int32, f32, bf16 and the wide multiply-add
@@ -281,13 +287,15 @@ def phase_build(state) -> dict:
         raise RuntimeError(f"ptxas reported {sorted(kernels)}, want "
                            f"{sorted(want)}")
     state["ptxas"] = kernels
-    # K5's out-of-line field operations (csrc/h2c.cu k5_*): their frames
-    # are not in the kernel's own ptxas line
-    state["k5_callees"] = {f: v for f, v in infos["h2c"]["functions"].items()
-                           if "k5_" in f}
+    # the out-of-line slot operations of K5, K6 and the MSM (csrc/
+    # g2_group.cuh gg_*, h2c.cu k6_*): their frames are not in the
+    # kernels' own ptxas lines
+    state["group_callees"] = {
+        lib: {f: v for f, v in infos[lib]["functions"].items()
+              if "gg_" in f or "k6_" in f} for lib in ("h2c", "msm")}
     return {"build_seconds": {k: v["build_seconds"] for k, v in infos.items()},
             "wall_seconds": time.perf_counter() - t0,
-            "ptxas": kernels, "k5_callees": state["k5_callees"],
+            "ptxas": kernels, "group_callees": state["group_callees"],
             "card": state["card"]}
 
 
@@ -499,6 +507,13 @@ def _point_products() -> dict:
             field.N_FP_PRODUCTS = 0
             fn()
             out[f"{name}_{op}"] = field.N_FP_PRODUCTS
+    a = pts[0][0]
+    sqr = _products(lambda: field.f2_sqr(a))
+    mul = _products(lambda: field.f2_mul(a, a))
+    # a Jacobian point plus an affine one (EFD madd-2007-bl, a = 0): Z1²,
+    # H², r², (Z1 + H)² and X2·Z1², Z1·Z1², Y2·Z1³, H·I, X1·I, r·(V − X3),
+    # Y1·J
+    out["g2_madd"] = 4 * sqr + 7 * mul
     return out
 
 
@@ -508,12 +523,63 @@ def _ladder_products(k: int, dbl: int, add: int) -> int:
                              + (bin(k).count("1") - 1) * add)
 
 
-def _msm_case(dev, rng, n_lanes: int, nbits: int, counts: dict) -> dict:
-    """One MSM input from SEED: every lane its own point and scalar,
-    lanes 16 and n/2 equal to lane 0 (so that the kernel's block fold and
-    the plain fold both take the doubling case), every 7th lane and the
-    last masked. Kernel against plain word for word, and the sum against
-    the host's Σ s·P."""
+def _msm_needed_products(live: list, counts: dict) -> dict:
+    """Fp products that one sum of Σ sᵢ·Pᵢ over affine Pᵢ with the live
+    lanes' scalars ``live`` needs, for the MSM's bound: a bucket
+    (Pippenger) MSM at the cheapest window c of 1-12 bits, counted on
+    this run's scalars. In each window of c bits from the top bit of the
+    largest scalar, every point with a nonzero digit goes into its
+    digit's bucket (the first point of a bucket is a copy, each further
+    one a mixed addition, ``g2_madd``); the buckets are summed by running
+    sums from the top bucket (an addition where both sides hold a point:
+    mixed where the bucket holds one point, else complete); the windows
+    are joined by c doublings and one addition each; then one to-affine.
+    Unsigned digits: signed ones or batched affine additions would need
+    fewer."""
+    top = max(live, default=0).bit_length()
+    if top == 0:
+        return {"window": 0, "products": 0}
+    best = None
+    for c in range(1, 13):
+        n_madd = n_add = n_dbl = 0
+        windows = -(-top // c)
+        for w in range(windows):
+            fill = {}
+            for sc in live:
+                d = (sc >> (c * w)) & ((1 << c) - 1)
+                if d:
+                    fill[d] = fill.get(d, 0) + 1
+            n_madd += sum(fill.values()) - len(fill)
+            run = tot = False
+            for d in range(2 ** c - 1, 0, -1):
+                if d in fill:
+                    if run:
+                        n_madd += fill[d] == 1
+                        n_add += fill[d] > 1
+                    run = True
+                if run:
+                    n_add += tot
+                    tot = True
+            if w < windows - 1:
+                n_dbl += c
+                n_add += tot
+        cost = (n_madd * counts["g2_madd"] + n_add * counts["g2_add"]
+                + n_dbl * counts["g2_dbl"] + counts["g2_aff"])
+        if best is None or cost < best["products"]:
+            best = {"window": c, "products": cost}
+    return best
+
+
+def _msm_case(dev, rng, n_lanes: int, nbits: int, counts: dict, k: int = 1,
+              equal=None, masked=None, scalars=None) -> dict:
+    """One MSM input from SEED: k sums over the same mask and bits, every
+    lane of every sum its own point and scalar. By default lanes 1, 16
+    and n/2 equal lane 0, point and scalar (so that the kernel's warp
+    fold and the plain fold both take the doubling case), and every 7th
+    lane and the last are masked; ``equal`` ((dst, src) lane pairs),
+    ``masked`` (a 0/1 list) and ``scalars`` replace those. Kernel against
+    plain word for word, a stacked call (k > 1) also against k calls of
+    one sum, and every sum against the host's Σ s·P."""
     import numpy as np
     import torch
 
@@ -525,39 +591,95 @@ def _msm_case(dev, rng, n_lanes: int, nbits: int, counts: dict) -> dict:
     from drand_tpu_torch.tools._common import max_abs_err, time_ms, time_once
 
     g = PointG2.generator()
-    step, p = g.mul(rng.randrange(1, R)), g.mul(rng.randrange(1, R))
-    pts = []
-    for _ in range(n_lanes):
-        pts.append(p)
-        p = p + step
+    sums = []
+    for _ in range(k):
+        step, p = g.mul(rng.randrange(1, R)), g.mul(rng.randrange(1, R))
+        pts = []
+        for _ in range(n_lanes):
+            pts.append(p)
+            p = p + step
+        sums.append(pts)
     top = R if nbits >= 255 else 1 << nbits
-    scal = [rng.randrange(1, top) for _ in range(n_lanes)]
-    for j in {min(16, n_lanes - 2), n_lanes // 2}:
-        pts[j], scal[j] = pts[0], scal[0]
-    mask = [int(i % 7 == 3 or i == n_lanes - 1) for i in range(n_lanes)]
-    arr = np.stack([_g2_xy(xy) for xy in PointG2.batch_to_affine(pts)])
-    bits = np.stack([scalar_to_bits(k, nbits) for k in scal])
+    scal = scalars or [rng.randrange(1, top) for _ in range(n_lanes)]
+    if equal is None:
+        equal = [(j, 0) for j in sorted({1, 16, n_lanes // 2}) if
+                 0 < j < n_lanes - 1]
+    for dst, src in equal:
+        scal[dst] = scal[src]
+        for pts in sums:
+            pts[dst] = pts[src]
+    mask = masked or [int(i % 7 == 3 or i == n_lanes - 1)
+                      for i in range(n_lanes)]
+    arr = np.stack([np.stack([_g2_xy(xy) for xy in
+                              PointG2.batch_to_affine(pts)]) for pts in sums])
+    bits = np.stack([scalar_to_bits(c, nbits) for c in scal])
     args = [torch.from_numpy(a).to(dev) for a in
-            (arr, np.array(mask, np.int32), bits.astype(np.int32))]
+            (arr if k > 1 else arr[0], np.array(mask, np.int32),
+             bits.astype(np.int32))]
     xy_k, inf_k = msm.msm(*args)
     (xy_p, inf_p), plain_ms = time_once(lambda: msm.msm_plain(*args))
     err = max(max_abs_err(xy_k, xy_p), max_abs_err(inf_k, inf_p))
-    host = PointG2.infinity()
-    for pt, k, m in zip(pts, scal, mask):
-        if not m:
-            host = host + pt.mul(k)
-    got = _g2_from_words(xy_k.cpu().numpy())
-    live = [k for k, m in zip(scal, mask) if not m]
-    products = (sum(_ladder_products(k, counts["g2_dbl"], counts["g2_add"])
-                    for k in live)
-                + (len(live) - 1) * counts["g2_add"] + counts["g2_aff"])
+    if k > 1:          # the stacked call equals one call per sum
+        for j in range(k):
+            xy_j, inf_j = msm.msm(args[0][j].contiguous(), *args[1:])
+            err = max(err, max_abs_err(xy_j, xy_k[j]),
+                      max_abs_err(inf_j, inf_k[j]))
+    xy_h = xy_k.reshape(k, 2, 2, -1).cpu().numpy()
+    inf_h = inf_k.reshape(k).cpu().tolist()
+    host_ok = True
+    for j, pts in enumerate(sums):
+        host = PointG2.infinity()
+        for pt, c, m in zip(pts, scal, mask):
+            if not m:
+                host = host + pt.mul(c)
+        host_ok &= (bool(inf_h[j]) == host.is_infinity() and (
+            inf_h[j] or _g2_from_words(xy_h[j]) == host))
+    live = [c for c, m in zip(scal, mask) if not m]
+    needed = _msm_needed_products(live, counts)
+    ladder = k * (sum(_ladder_products(c, counts["g2_dbl"],
+                                       counts["g2_add"]) for c in live)
+                  + max(len(live) - 1, 0) * counts["g2_add"]
+                  + counts["g2_aff"])
+    products = k * needed["products"]
     bound, by = _bound_ms(products, _nbytes(*args, xy_k, inf_k))
-    return {"lanes": n_lanes, "nbits": nbits, "masked": sum(mask),
-            "max_abs_err": err, "host_match": bool(got == host
-                                                   and not inf_k.item()),
-            "ms": time_ms(lambda: msm.msm(*args), TIMED_LAUNCHES),
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "fp_products": products}
+    ms = time_ms(lambda: msm.msm(*args), TIMED_LAUNCHES)
+    return {"lanes": n_lanes, "nbits": nbits, "sums": k,
+            "masked": sum(mask), "max_abs_err": err,
+            "host_match": bool(host_ok), "infinity": inf_h,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "share_of_bound": bound / ms,
+            "fp_products_needed": products, "bucket_window": needed["window"],
+            "fp_products_ladders": ladder}
+
+
+def _msm_edge_cases(dev, rng, counts: dict) -> dict:
+    """The MSM's edge cases, each word for word against its plain version
+    and against the host: n = 1, 3, 5 and 33 (partly filled warps and
+    blocks; a warp is eight lanes); one warp whose lanes' bits differ at
+    every step (lane j's bit i is (i + j) mod 2); a lane with scalar 0;
+    equal points inside one warp (lanes 0 and 1) and two equal blocks
+    (lanes 8-15 repeat 0-7), so that the warp fold and the fold of the
+    block partials both take the doubling case; every lane masked."""
+    nb = 16
+    out = {f"n{n}": _msm_case(dev, rng, n, 64, counts, masked=[0] * n,
+                              equal=[] if n < 3 else [(1, 0)])
+           for n in (1, 3, 5, 33)}
+    alt = [int("".join(str((i + j) % 2) for i in range(nb)), 2)
+           for j in range(8)]
+    out["bits_differ"] = _msm_case(dev, rng, 8, nb, counts, masked=[0] * 8,
+                                   equal=[], scalars=alt)
+    zero = [rng.randrange(1, 1 << nb) for _ in range(8)]
+    zero[5] = 0
+    out["zero_scalar"] = _msm_case(dev, rng, 8, nb, counts, masked=[0] * 8,
+                                   equal=[], scalars=zero)
+    out["equal_blocks"] = _msm_case(
+        dev, rng, 16, nb, counts, masked=[0] * 16,
+        equal=[(1, 0)] + [(8 + j, j) for j in range(8)])
+    out["all_masked"] = _msm_case(dev, rng, 32, 64, counts, masked=[1] * 32,
+                                  equal=[])
+    if out["all_masked"]["infinity"] != [1]:
+        raise RuntimeError(f"all-masked MSM is not infinity: {out}")
+    return out
 
 
 def _dealers(state):
@@ -663,19 +785,15 @@ def _horner_round_case(dev, t: int, n: int, tag: bytes, counts: dict) -> dict:
 
 def _curve_kernels(state) -> dict:
     """The MSM and Horner kernels against their plain versions at the
-    shapes of the rounds: the MSM with GLS4 digits at 512 lanes (67 of
-    100) and 32 lanes (6 of 10), 255-bit scalars at 128 lanes and an
-    all-masked input; the Horner at t = 65 with per-lane indices in both
-    output forms, and in the fused form on both rounds' inputs. The
-    kernels line reports each kernel at the shape and form of its
-    launches on the 67-of-100 round."""
-    import numpy as np
-    import torch
-
-    from drand_tpu_torch.crypto.curves import PointG2
-    from drand_tpu_torch.ops import msm
-    from drand_tpu_torch.ops.engine import _g2_xy, msm_lanes
-    from drand_tpu_torch.tools._common import max_abs_err
+    shapes of their launches: the MSM with GLS4 digits at 512 lanes (67
+    of 100) and 32 lanes (6 of 10), 255-bit scalars at 128 lanes, the
+    wire-RLC combine's two sums of 512 lanes × 128 bits in one stacked
+    call, and its edge cases (``_msm_edge_cases``); the Horner at t = 65
+    with per-lane indices in both output forms, and in the fused form on
+    both rounds' inputs. The kernels line reports each kernel at the
+    shape and form of its launches on the 67-of-100 round, and the MSM
+    also at the wire-RLC combine's launch."""
+    from drand_tpu_torch.ops.engine import msm_lanes
 
     dev = state["device"]
     rng = random.Random(SEED + 1)
@@ -683,22 +801,15 @@ def _curve_kernels(state) -> dict:
     gls4 = _msm_case(dev, rng, MSM_GLS4_LANES, 64, counts)
     full = _msm_case(dev, rng, MSM_FULL_LANES, 255, counts)
     live = _msm_case(dev, rng, msm_lanes(GROUP_T, True), 64, counts)
-    rlc = _msm_case(dev, rng, WIRE_LANES, RLC_BITS, counts)
-    gen = _g2_xy(PointG2.generator().to_affine())
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
-        np.broadcast_to(gen, (32,) + gen.shape), np.ones(32, np.int32),
-        np.ones((32, 64), np.int32))]
-    (xy_k, inf_k), (xy_p, inf_p) = msm.msm(*args), msm.msm_plain(*args)
-    masked = {"max_abs_err": max(max_abs_err(xy_k, xy_p),
-                                 max_abs_err(inf_k, inf_p)),
-              "infinity": bool(inf_k.item())}
+    rlc = _msm_case(dev, rng, WIRE_LANES, RLC_BITS, counts, k=2)
+    edges = _msm_edge_cases(dev, rng, counts)
     horner = _horner_case(state, rng, counts)
     h_big = _horner_round_case(dev, BIG_T, BIG_N, BIG_TAG, counts)
     h_live = _horner_round_case(dev, GROUP_T, GROUP_N, GROUP_TAG, counts)
-    msm_cases = (gls4, full, live, rlc, masked)
+    msm_cases = (gls4, full, live, rlc, *edges.values())
     horner_cases = (horner, h_big, h_live)
     # the shapes compared here, which the rounds' launches must have
-    state["msm_shapes"] = {(c["lanes"], c["nbits"]) for c in msm_cases[:4]}
+    state["msm_shapes"] = {(c["lanes"], c["nbits"]) for c in msm_cases[:3]}
     state["fused_horner_shapes"] = {(c["t"], c["lanes"])
                                     for c in (h_big, h_live)}
     state["kernels"]["msm"] = {
@@ -708,7 +819,22 @@ def _curve_kernels(state) -> dict:
         "max_abs_err": max(c["max_abs_err"] for c in msm_cases),
         "ms": gls4["ms"], "plain_ms": gls4["plain_ms"],
         "bound_ms": gls4["bound_ms"], "bound_by": gls4["bound_by"],
-        "library_ms": None}
+        "library_ms": None, "share_of_bound": gls4["share_of_bound"],
+        "shape": "GLS4, 512 lanes x 64 bits"}
+    # the same kernels at the wire-RLC combine's launch: both sums of a
+    # bucket in one launch
+    state["kernels"]["msm_wire_rlc"] = dict(
+        state["kernels"]["msm"], ms=rlc["ms"], plain_ms=rlc["plain_ms"],
+        bound_ms=rlc["bound_ms"], bound_by=rlc["bound_by"],
+        share_of_bound=rlc["share_of_bound"],
+        shape=f"2 sums x {WIRE_LANES} lanes x {RLC_BITS} bits")
+    ptx = [state["ptxas"][f"msm_{part}_kernel"] for part in ("ladder_fold",
+                                                            "final")]
+    for key in ("msm", "msm_wire_rlc"):
+        state["kernels"][key].update(
+            registers=[p["registers"] for p in ptx],
+            stack_bytes=max(p["stack_bytes"] for p in ptx),
+            callee_stack_bytes=_callee_stack("msm", state))
     state["kernels"]["horner"] = {
         "name": "eval_horner_kernel", "route": "cuda",
         "source": "drand_tpu_torch/csrc/eval.cu",
@@ -718,15 +844,12 @@ def _curve_kernels(state) -> dict:
         "bound_ms": h_big["bound_ms"], "bound_by": h_big["bound_by"],
         "library_ms": None}
     out = {"tolerance": 0, "msm_gls4": gls4, "msm_full": full,
-           "msm_live_round": live, "msm_wire_rlc": rlc,
-           "msm_all_masked": masked,
+           "msm_live_round": live, "msm_wire_rlc": rlc, "msm_edges": edges,
            "horner": horner, "horner_round_67_of_100": h_big,
            "horner_round_6_of_10": h_live, "point_products": counts}
     bad = (state["kernels"]["msm"]["max_abs_err"]
            or state["kernels"]["horner"]["max_abs_err"]
-           or not all(c["host_match"] for c in (gls4, full, live, rlc, h_big,
-                                                 h_live))
-           or not masked["infinity"]
+           or not all(c["host_match"] for c in (*msm_cases, h_big, h_live))
            or not all(horner[f"host_match_affine_{a}"] for a in (False, True)))
     if bad:
         raise RuntimeError(f"curve kernel mismatch: {out}")
@@ -1002,12 +1125,16 @@ def _k5_case(state, rng) -> dict:
 
 def _k6_case(state, rng) -> dict:
     """K6 against its plain version on WIRE_LANES lanes — 500 signatures
-    of the chain (both sort flags), x off the curve, points of E2 outside
-    G2 (x with x³ + 4(1+u) a square, not cleared) with both flags, and
-    rows ``sigs_to_x`` rejected (zeros in, zeros out) — word for word on
-    every lane, and HOST_LANES lanes against the host ``decode_sig``.
-    Fp products per lane: the plain count (every lane runs the subgroup
-    check) less that check on lanes whose x is not on the curve."""
+    of the chain (both sort flags), two of them (one with the sort flag,
+    one without) in one warp of K6 checks with x off the curve and points
+    of E2 outside G2 (x with x³ + 4(1+u) a square, not cleared), each
+    with both flags, and two rows ``sigs_to_x`` rejects (zeros in, zeros
+    out), then six more of those — word for word on every lane; K6
+    launched alone at n = 1, 3, 4 and 128 and on the mixed warp, word for
+    word against the same plain rows; HOST_LANES lanes against the host
+    ``decode_sig``. Fp products per lane: the plain count (every lane runs
+    the subgroup check) less that check on lanes whose x is not on the
+    curve."""
     import numpy as np
     import torch
 
@@ -1019,9 +1146,9 @@ def _k6_case(state, rng) -> dict:
 
     dev = state["device"]
     chain = _chain(state)
-    sigs = []
+    span = []
     for bcn in chain[:SPAN_LANES // 2]:
-        sigs += [bcn.signature, bcn.signature_v2]
+        span += [bcn.signature, bcn.signature_v2]
     b_g2 = Fp2(4, 4)
 
     def encode(x, flag):
@@ -1034,11 +1161,25 @@ def _k6_case(state, rng) -> dict:
         x = Fp2(rng.randrange(P), rng.randrange(P))
         on = (x * x * x + b_g2).is_square()
         (outside if on else off).append(x)
-    sigs += [encode(x, k % 2) for k, x in enumerate(off[:4])]
-    sigs += [encode(x, k % 2) for k, x in enumerate(outside[:4])]
-    good = sigs[0]
-    sigs += [bytes([good[0] & 0x7F]) + good[1:], bytes([0xC0]) + bytes(95),
-             good[:95], good[:48] + P.to_bytes(48, "big")]
+    good = span[0]
+    rejected = [bytes([good[0] & 0x7F]) + good[1:], bytes([0xC0]) + bytes(95),
+                good[:95], good[:48] + P.to_bytes(48, "big")]
+    group = wire.decompress_group_size()
+    warp = 32 // group
+    # the chain's last signatures with and without the sort flag go into
+    # the mixed warp, which starts at the last warp boundary before them
+    flag_set = [bool(sg[0] & 0x20) for sg in span]
+    pick = [len(span) - 1 - flag_set[::-1].index(f) for f in (True, False)]
+    rest = [sg for i, sg in enumerate(span) if i not in pick]
+    mixed_at = len(rest) // warp * warp             # 496 = 62 warps
+    mixed = [span[i] for i in pick] + [
+        encode(off[0], 0), encode(off[1], 1), encode(outside[0], 0),
+        encode(outside[1], 1)] + rejected[:2]
+    sigs = rest[:mixed_at] + mixed + rest[mixed_at:] + [
+        encode(off[2], 1), encode(off[3], 0), encode(outside[2], 1),
+        encode(outside[3], 0)] + rejected[2:]
+    if len(mixed) != warp or len(sigs) != WIRE_LANES:
+        raise RuntimeError(f"the mixed K6 warp is not one warp at {mixed_at}")
     xs, sign, valid = h2c.sigs_to_x(sigs)
     x = torch.from_numpy(xs).to(dev)
     sg = torch.from_numpy(sign.astype(np.int32)).to(dev)
@@ -1047,8 +1188,15 @@ def _k6_case(state, rng) -> dict:
     (xy_p, ok_p), plain_ms = time_once(lambda: h2c.decompress_plain(x, sg))
     full = field.N_FP_PRODUCTS / WIRE_LANES
     err = max(max_abs_err(xy_k, xy_p), max_abs_err(ok_k, ok_p))
-    lanes = list(range(6)) + [SPAN_LANES + k for k in (0, 1, 2, 4, 5, 6, 8,
-                                                       9, 10, 11)]
+    sizes_err = {}
+    for label, lo, hi in (("n1", 0, 1), ("n3", 0, 3), ("n4", 0, 4),
+                          ("n128", 0, 128),
+                          ("mixed_warp", mixed_at, mixed_at + warp)):
+        xy_n, ok_n = wire.decompress_g2(x[lo:hi].contiguous(),
+                                        sg[lo:hi].contiguous())
+        sizes_err[label] = max(max_abs_err(xy_n, xy_p[lo:hi]),
+                               max_abs_err(ok_n, ok_p[lo:hi]))
+    lanes = list(range(6)) + list(range(mixed_at, WIRE_LANES))
     xy_h, ok_h = xy_k.cpu().numpy(), ok_k.cpu().numpy()
     host_ok = all(
         (decode_sig(sigs[j]) is None) == (not (ok_h[j] and valid[j]))
@@ -1063,17 +1211,29 @@ def _k6_case(state, rng) -> dict:
                 for r in xs]
     products = full * WIRE_LANES - sub_cost * on_curve.count(False)
     bound, by = _bound_ms(products, _nbytes(x, sg, xy_k, ok_k))
-    flags = [bool(s[0] & 0x20) for s in sigs[:SPAN_LANES]]
-    return {"lanes": WIRE_LANES, "signature_lanes": SPAN_LANES,
-            "sort_flags_set": sum(flags), "off_curve": 4,
+    ms = time_ms(lambda: wire.decompress_g2(x, sg), TIMED_LAUNCHES)
+    x128, s128 = x[:128].contiguous(), sg[:128].contiguous()
+    return {"lanes": WIRE_LANES, "signature_lanes": len(span),
+            "group": group, "mixed_warp_lanes": warp,
+            "sort_flags_set": sum(flag_set), "off_curve": 4,
             "outside_g2": 4, "rejected_by_byte_split": int((~valid).sum()),
             "accepted": int(ok_k.sum().item()), "max_abs_err": err,
+            "sizes_err": sizes_err,
             "host_lanes": len(lanes), "host_match": bool(host_ok),
-            "ms": time_ms(lambda: wire.decompress_g2(x, sg),
-                          TIMED_LAUNCHES),
+            "ms": ms,
+            "ms_at_128": time_ms(lambda: wire.decompress_g2(x128, s128),
+                                 TIMED_LAUNCHES),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / ms,
             "fp_products_per_lane_all_branches": full,
             "fp_products_per_lane": products / WIRE_LANES}
+
+
+def _callee_stack(lib: str, state) -> int:
+    """The largest stack frame of a library's out-of-line slot operations
+    (``state["group_callees"]``, from ptxas)."""
+    return max((v["stack_bytes"]
+                for v in state["group_callees"][lib].values()), default=0)
 
 
 def _wire_kernels(state) -> dict:
@@ -1091,19 +1251,20 @@ def _wire_kernels(state) -> dict:
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None}
-    ptx = state["ptxas"]["hash_to_g2_kernel"]
-    state["kernels"]["hash_to_g2"].update(
-        group=k5["group"], registers=ptx["registers"],
-        stack_bytes=ptx["stack_bytes"],
-        callee_stack_bytes=max((v["stack_bytes"]
-                                for v in state["k5_callees"].values()),
-                               default=0),
-        share_of_bound=k5["bound_ms"] / k5["ms"],
-        ms_at_128=k5["ms_at_128"], ms_at_4=k5["ms_at_4"])
+    for key, case in (("hash_to_g2", k5), ("decompress_g2", k6)):
+        ptx = state["ptxas"][state["kernels"][key]["name"]]
+        state["kernels"][key].update(
+            group=case["group"], registers=ptx["registers"],
+            stack_bytes=ptx["stack_bytes"],
+            callee_stack_bytes=_callee_stack("h2c", state),
+            share_of_bound=case["share_of_bound"],
+            ms_at_128=case["ms_at_128"])
+    state["kernels"]["hash_to_g2"]["ms_at_4"] = k5["ms_at_4"]
     out = {"tolerance": 0, "hash_to_g2": k5, "decompress_g2": k6}
     if (k5["max_abs_err"] or k6["max_abs_err"] or not k5["host_match"]
             or not k6["host_match"] or any(k5["sizes_err"].values())
-            or not 0 < k6["sort_flags_set"] < SPAN_LANES):
+            or any(k6["sizes_err"].values())
+            or not 0 < k6["sort_flags_set"] < k6["signature_lanes"]):
         raise RuntimeError(f"wire kernel mismatch: {out}")
     return out
 
@@ -1351,10 +1512,10 @@ def phase_catchup_wire(state) -> dict:
            "gate_seconds": time.perf_counter() - t0,
            "kat": eng.introspect()["kat"]}
     chunks = checks // WIRE_LANES
-    clean = _launches(miller_loop=1, final_exp_verdict=1, msm=2 * chunks,
+    clean = _launches(miller_loop=1, final_exp_verdict=1, msm=chunks,
                       hash_to_g2=chunks, decompress_g2=chunks)
     corrupted = _launches(miller_loop=1 + chunks,
-                          final_exp_verdict=1 + chunks, msm=2 * chunks,
+                          final_exp_verdict=1 + chunks, msm=chunks,
                           hash_to_g2=2 * chunks, decompress_g2=2 * chunks)
     for label, beacons, want_false, want_launches, want_meters in (
             ("clean", chain, [], clean, (1, 2)),
@@ -1563,13 +1724,15 @@ def _run_phases(state, start: float) -> int:
         return 1
     # launches on each kernel's own main path: the host-prep catch-up span
     # for K1 and K2, the 67-of-100 round (all partials valid) for the MSM
-    # and the Horner, the corrupted wire span for K5 and K6, one run of
-    # each probe tool for the probe kernels
+    # and the Horner, the corrupted wire span for K5, K6 and the MSM at the
+    # wire-RLC combine's shape, one run of each probe tool for the probe
+    # kernels
     launches = {**state["main_launches"], **state["probe_launches"],
                 **{k: state["threshold_launches"][k] for k in ("msm",
                                                                "horner")},
                 **{k: state["wire_launches"][k] for k in ("hash_to_g2",
-                                                          "decompress_g2")}}
+                                                          "decompress_g2")},
+                "msm_wire_rlc": state["wire_launches"]["msm"]}
     emit({"phase": "summary", "script_seconds": time.perf_counter() - start,
           "main_path_launches": launches})
     emit({"kernels": [

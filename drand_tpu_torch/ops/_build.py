@@ -38,8 +38,9 @@ _ENTRY_POINTS = {
                                "i", "i", "i", "p"],
     },
     "msm": {
-        "msm_scratch_words": ["i"],
-        "msm_launch": ["p", "i", "p", "p", "p", "i", "p", "i", "p", "i", "p"],
+        "msm_scratch_words": ["i", "i"],
+        "msm_launch": ["p", "i", "p", "p", "p", "i", "p", "i", "p", "i", "i",
+                       "p"],
     },
     "eval": {
         "eval_horner_launch": ["p", "i", "p", "i", "p", "i", "i", "p", "p",
@@ -47,6 +48,7 @@ _ENTRY_POINTS = {
     },
     "h2c": {
         "hash_to_g2_group": [],
+        "decompress_g2_group": [],
         "hash_to_g2_launch": ["p", "i", "p", "i", "p", "p", "p", "i", "p"],
         "decompress_g2_launch": ["p", "i", "p", "i", "p", "p", "p", "p", "i",
                                  "p"],

@@ -179,8 +179,9 @@ def pt_fold(F, p):
     while p[3].shape[0] > 1:
         n = p[3].shape[0]
         if n % 2:
-            p = tuple(torch.cat([c, i[:1]]) for c, i in
-                      zip(p, pt_infinity(F, (1,), p[0].device)))
+            p = tuple(torch.cat([c, i]) for c, i in
+                      zip(p, pt_infinity(F, (1,) + p[3].shape[1:],
+                                         p[0].device)))
             n += 1
         h = n // 2
         p = pt_add(F, tuple(c[:h] for c in p), tuple(c[h:] for c in p))

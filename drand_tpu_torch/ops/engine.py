@@ -18,8 +18,9 @@ engine.py``) with its per-item, fused-round, wire and wire-RLC tiers
   of ``ops/wire.py``): the host does only SHA-256 expansion and byte
   splitting (``ops/h2c.py``);
 - ``verify_wire_rlc`` / ``verify_beacons_wire_rlc``: a span collapsed
-  on the card to (Σcᵢσᵢ, ΣcᵢH(mᵢ)) with 128-bit random scalars — two MSM
-  launches per bucket — and ONE product check of two Miller pairs;
+  on the card to (Σcᵢσᵢ, ΣcᵢH(mᵢ)) with 128-bit random scalars — one MSM
+  launch of both sums per bucket — and ONE product check of two Miller
+  pairs;
 - ``verify_sigs``: (msg, sig) pairs against one public key
   (chain/beacon/chain.go:141);
 - ``verify_partials``: one round's partials against their share public

@@ -9,16 +9,21 @@ runs ``msm_plain``; given CUDA tensors it launches the kernels or raises.
 
 Layouts (int32 words of canonical Montgomery values, ``ops/limb.py``):
 
-    pts   (b, 2, 2, 12)   affine x / y of each lane's point, c0 / c1
+    pts   (b, 2, 2, 12)   affine x / y of each lane's point, c0 / c1; or
+          (k, b, 2, 2, 12)  k sums over the same mask and bits (the
+                          wire-RLC combine's signatures and messages)
     mask  (b,)            int32, nonzero: the lane is left out
     bits  (b, nbits)      int32 0/1, MSB first (nbits 64 for the GLS4
-                          digit packing, 255 for full scalars)
-    xy    (2, 2, 12)      affine sum (zeros when it is infinity)
-    inf   (1,)            int32, 1 iff the sum is infinity
+                          digit packing, 128 for the wire-RLC scalars, 255
+                          for full scalars)
+    xy    (2, 2, 12)      affine sum (zeros when it is infinity); (k, 2,
+                          2, 12) for stacked points
+    inf   (1,)            int32, 1 iff the sum is infinity; (k, 1)
 
-One call of ``msm`` on the card is two launches (the per-block ladder and
-fold, then the fold of the block partials and the to-affine); it counts
-as ONE in ``LAUNCHES["msm"]``.
+One call of ``msm`` on the card is two launches (the ladders and the fold
+of each block's lanes, then the fold of the block partials and the
+to-affine), for all k sums at once; it counts as ONE in
+``LAUNCHES["msm"]``.
 """
 
 from __future__ import annotations
@@ -61,12 +66,19 @@ def _lib():
 
 
 def msm(pts: torch.Tensor, mask: torch.Tensor, bits: torch.Tensor):
-    """Σ bitsᵢ·Pᵢ over the unmasked lanes -> (xy (2, 2, 12), inf (1,))."""
-    b = pts.shape[0]
-    if b < 1 or bits.dim() != 2 or bits.shape[1] < 1:
-        raise ValueError("msm: needs b >= 1 lanes and bits (b, nbits)")
+    """Σ bitsᵢ·Pᵢ over the unmasked lanes -> (xy (2, 2, 12), inf (1,)),
+    or, for pts (k, b, 2, 2, 12), the k sums -> (xy (k, 2, 2, 12), inf (k,
+    1)) in one launch."""
+    stacked = pts.dim() == 5
+    k = pts.shape[0] if stacked else 1
+    b = pts.shape[-4] if pts.dim() >= 4 else 0
+    if (pts.dim() not in (4, 5) or k < 1 or b < 1 or bits.dim() != 2
+            or bits.shape[1] < 1):
+        raise ValueError("msm: needs pts (b, 2, 2, 12) or (k, b, 2, 2, 12) "
+                         "with k, b >= 1, and bits (b, nbits)")
     nbits = bits.shape[1]
-    for name, t, shape in (("pts", pts, (b, 2, 2, NWORDS)),
+    for name, t, shape in (("pts", pts, ((k,) if stacked else ())
+                            + (b, 2, 2, NWORDS)),
                            ("mask", mask, (b,)), ("bits", bits, (b, nbits))):
         _check(name, t, shape, pts.device)
     if pts.device.type == "cpu":
@@ -74,14 +86,17 @@ def msm(pts: torch.Tensor, mask: torch.Tensor, bits: torch.Tensor):
     if pts.device.type != "cuda":
         raise ValueError(f"msm: unsupported device {pts.device}")
     lib = _lib()
-    scratch = torch.empty(lib.msm_scratch_words(b), dtype=torch.int32,
+    scratch = torch.empty(lib.msm_scratch_words(b, k), dtype=torch.int32,
                           device=pts.device)
-    out = torch.empty(4 * NWORDS + 1, dtype=torch.int32, device=pts.device)
+    out = torch.empty((k, 4 * NWORDS + 1), dtype=torch.int32,
+                      device=pts.device)
     consts = _consts_on(pts.device)
     with _launch_on(pts) as stream:
         err = lib.msm_launch(_ptr(consts), consts.numel(), _ptr(pts),
                              _ptr(mask), _ptr(bits), nbits, _ptr(scratch),
-                             scratch.numel(), _ptr(out), b, stream)
+                             scratch.numel(), _ptr(out), b, k, stream)
     _raise_on(err, "msm kernels")
     LAUNCHES["msm"] += 1
-    return out[:4 * NWORDS].view(XY_SHAPE), out[4 * NWORDS:]
+    xy = out[:, :4 * NWORDS].view((k,) + XY_SHAPE)
+    inf = out[:, 4 * NWORDS:]
+    return (xy, inf) if stacked else (xy[0], inf[0])

@@ -7,13 +7,15 @@ Counterpart of the JAX package's ``ops/pallas_wire.py``:
 - ``hash_to_g2`` (K5) replaces, fused, ``_map_kernel`` (×2),
   ``_ptadd_affine_kernel``, ``_mulx_kernel`` (×2) and
   ``_clear_glue_kernel`` — the chain of ``_hash_msgs_pl`` — with a group
-  of eight threads on each check (``csrc/fp_group.cuh``);
-- ``decompress_g2`` (K6) replaces ``_sig_kernel`` (``_sig_pl``);
+  of eight threads on each check (``csrc/fp_group.cuh``,
+  ``csrc/g2_group.cuh``);
+- ``decompress_g2`` (K6) replaces ``_sig_kernel`` (``_sig_pl``) with a
+  half-group of four threads on each check;
 - ``verify_wire_prepared`` is ``_wire_verify_pl``: K6, K5, then K1 and
   K2 of ``ops/pairing.py``, verdict ``pair_ok & sig_ok & ~minf``;
-- ``wire_rlc_combine`` is ``_wire_rlc_pl``: K6, K5, then two G2 MSMs
-  (``ops/msm.py``) at 128-bit scalars over the lanes that decoded, hashed
-  to a finite point and are live.
+- ``wire_rlc_combine`` is ``_wire_rlc_pl``: K6, K5, then one launch of
+  the G2 MSM (``ops/msm.py``) for both sums, at 128-bit scalars over the
+  lanes that decoded, hashed to a finite point and are live.
 
 A wrapper given CPU tensors runs the kernel's plain version
 (``ops/h2c.py``); given CUDA tensors it launches the kernel or raises.
@@ -90,6 +92,12 @@ def group_size() -> int:
     return int(_lib().hash_to_g2_group())
 
 
+def decompress_group_size() -> int:
+    """Threads per check of the built K6 (``K6_GROUP`` of csrc/h2c.cu);
+    needs the card's toolkit, since it builds the library."""
+    return int(_lib().decompress_g2_group())
+
+
 def decompress_g2(x: torch.Tensor, sign: torch.Tensor):
     """K6: x (n, 2, 12), sign (n,) -> (xy (n, 2, 2, 12), ok (n,) int32)."""
     n = x.shape[0]
@@ -130,17 +138,13 @@ def verify_wire_prepared(pub_xy: torch.Tensor, u: torch.Tensor,
 def wire_rlc_combine(u: torch.Tensor, x: torch.Tensor, sign: torch.Tensor,
                      live: torch.Tensor, bits: torch.Tensor):
     """The wire-RLC combine of one bucket: K6 and K5, then (Σcᵢσᵢ, ΣcᵢH(mᵢ))
-    by two MSM launches sharing the scalar bits (b, 128). A lane that
-    failed decoding, hashed to infinity or is not ``live`` is masked out
-    of both sums. Returns (ok (b,) bool, (sig xy, sig inf), (msg xy, msg
-    inf))."""
+    by one MSM launch of the two sums, sharing the scalar bits (b, 128). A
+    lane that failed decoding, hashed to infinity or is not ``live`` is
+    masked out of both sums. Returns (ok (b,) bool, (sig xy, sig inf),
+    (msg xy, msg inf))."""
     sig_xy, sig_ok = decompress_g2(x, sign)
     msg_xy, msg_inf = hash_to_g2(u)
     ok = (sig_ok != 0) & (live != 0) & (msg_inf == 0)
     dead = (~ok).to(torch.int32)
-    if u.device.type == "cpu":
-        # the plain version of the two MSM launches, as one stacked call
-        xy, inf = msm_ops.msm_plain(torch.stack([sig_xy, msg_xy]), dead, bits)
-        return ok, (xy[0], inf[0]), (xy[1], inf[1])
-    return (ok, msm_ops.msm(sig_xy, dead, bits),
-            msm_ops.msm(msg_xy, dead, bits))
+    xy, inf = msm_ops.msm(torch.stack([sig_xy, msg_xy]), dead, bits)
+    return ok, (xy[0], inf[0]), (xy[1], inf[1])

@@ -89,3 +89,64 @@ def _launch_calls(fn):
 def test_every_wrapper_launches_under_launch_on(fn, entry):
     assert _launch_calls(fn) == [(entry, True)]
     assert "current_stream" not in inspect.getsource(fn)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the second card, so that a
+    wrapper takes its launch path here."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 1)
+
+
+def test_stacked_msm_launches_once_under_its_tensors_card(monkeypatch):
+    """msm on stacked points (k, b, 2, 2, 12) makes ONE launch of the k
+    sums, inside the tensor's card's guard and on its stream, with scratch
+    and output sized for k sums; it counts one launch."""
+    entered, calls = [], []
+
+    class FakeDevice:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            entered.append(self.device)
+
+        def __exit__(self, *exc):
+            entered.append(None)
+            return False
+
+    class FakeStream:
+        cuda_stream = 0x5EED
+
+    class FakeLib:
+        def msm_scratch_words(self, n, k):
+            return 7 * n * k
+
+        def msm_launch(self, *args):
+            calls.append((list(entered), args))
+            return 0
+
+    empty = torch.empty
+    monkeypatch.setattr(torch.cuda, "device", FakeDevice)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: FakeStream())
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **kw:
+                        empty(*a, **kw))
+    monkeypatch.setattr(msm, "_lib", FakeLib)
+    monkeypatch.setattr(msm, "_consts_on",
+                        lambda device: torch.zeros(3, dtype=torch.int32))
+    k, b, nbits = 2, 5, 16
+    pts, mask, bits = (torch.zeros(shape, dtype=torch.int32).as_subclass(
+        _OnCard) for shape in ((k, b, 2, 2, 12), (b,), (b, nbits)))
+    before = msm.LAUNCHES["msm"]
+    xy, inf = msm.msm(pts, mask, bits)
+    assert msm.LAUNCHES["msm"] == before + 1
+    assert xy.shape == (k, 2, 2, 12) and inf.shape == (k, 1)
+    (inside, args), = calls
+    assert inside == [torch.device("cuda", 1)]
+    # consts, n_words, pts, mask, bits, nbits, scratch, scratch_words,
+    # out, n, k, stream
+    assert (args[5], args[7], args[9], args[10]) == (nbits, 7 * b * k, b, k)
+    assert args[11].value == 0x5EED

@@ -97,6 +97,59 @@ def test_msm_plain_edge_sums(case):
     assert _msm_point(xy, inf) == expect
 
 
+@pytest.fixture(scope="module", params=[8, 5], ids=["8_lanes", "5_lanes"])
+def stacked(request):
+    """Two sums over one mask and one set of 16-bit scalars, as the
+    wire-RLC combine stacks its signatures and messages: point i of sum j
+    is [a_ij]g, lane 2 masked, lanes 0 and 1 of each sum equal (point and
+    scalar). Returns the stacked inputs and each sum's host Σ (the JAX
+    host's generator times Σ s_i·a_ij)."""
+    b = request.param
+    rnd = random.Random(29 + b)
+    g = PointG2.generator()
+    logs = [[rnd.randrange(1, R) for _ in range(b)] for _ in range(2)]
+    scal = [rnd.randrange(1, 1 << 16) for _ in range(b)]
+    for row in logs:
+        row[1] = row[0]
+    scal[1] = scal[0]
+    mask = [int(i == 2) for i in range(b)]
+    pts = np.stack([np.stack([engine._g2_xy(g.mul(a).to_affine())
+                              for a in row]) for row in logs])
+    bits = np.stack([jcurve.scalar_to_bits(c, 16) for c in scal])
+    expect = [JG2.generator().mul(sum(c * a for c, a, m in
+                                      zip(scal, row, mask) if not m) % R)
+              for row in logs]
+    args = (torch.from_numpy(pts), torch.tensor(mask, dtype=torch.int32),
+            torch.from_numpy(bits.astype(np.int32)))
+    return args, expect
+
+
+def test_msm_stacked_equals_single_calls_and_host(stacked):
+    """msm on (2, b, 2, 2, 12) gives both sums at once: each equals the
+    call of its own sum and the host Σ."""
+    (pts, mask, bits), expect = stacked
+    xy, inf = msm.msm(pts, mask, bits)
+    assert xy.shape == (2, 2, 2, NWORDS) and inf.shape == (2, 1)
+    for j in range(2):
+        one_xy, one_inf = msm.msm(pts[j].contiguous(), mask, bits)
+        assert torch.equal(xy[j], one_xy) and torch.equal(inf[j], one_inf)
+        assert _msm_point(xy[j], inf[j]) == expect[j]
+
+
+@pytest.mark.parametrize("bad", ["four_dims", "six_dims", "no_sums",
+                                 "lanes", "words"])
+def test_msm_rejects_malformed_stacked_shapes(bad, stacked):
+    (pts, mask, bits), _ = stacked
+    b = pts.shape[1]
+    shape = {"four_dims": (2, b, 2, NWORDS),
+             "six_dims": (1, 2, b, 2, 2, NWORDS),
+             "no_sums": (0, b, 2, 2, NWORDS),
+             "lanes": (2, b + 1, 2, 2, NWORDS),
+             "words": (2, b, 2, 2, NWORDS - 1)}[bad]
+    with pytest.raises(ValueError):
+        msm.msm(torch.zeros(shape, dtype=torch.int32), mask, bits)
+
+
 def _horner_commits(t: int, b: int):
     """The JAX test's dealers: commitment k of dealer d is
     [97d + 13k + 1]·g; returned as JAX polys and the JAX engine's (t, b,
