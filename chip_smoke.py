@@ -14,7 +14,8 @@ line each:
 2. ``kernels``   — every kernel against its plain PyTorch version on the
                    card, word for word, at the shapes of the paths below:
                    K1 (Miller loop) and K2 (final exponentiation +
-                   verdict) at 512 and 128 lanes; the G2 MSM with GLS4
+                   verdict) at 512, 128, 5 (a block's second warp
+                   without a check) and 4 lanes; the G2 MSM with GLS4
                    digit scalars at 512 lanes and with 255-bit scalars at
                    128 lanes (its own point and scalar on every lane,
                    lanes alike so that the folds double, masked lanes),
@@ -38,7 +39,7 @@ line each:
                    and rows the byte split rejects, and more of those, K6
                    also launched alone at 1, 3, 4 and 128 lanes and on
                    that warp; 22 lanes of K6 and 16 of K5 also against
-                   the host; K1/K2 at the combined row's bucket of 4;
+                   the host;
 3. ``probes``    — the card's own probes (``drand_tpu_torch/tools``), each
                    tool's run its main path: ``microbench`` (CUDA-core
                    chains in int32, f32, bf16 and the wide multiply-add
@@ -119,6 +120,7 @@ MSM_GLS4_LANES, MSM_FULL_LANES = 512, 128
 WIRE_LANES = 512                  # K5 / K6 lanes: the wire span's bucket
 RLC_BITS = 128                    # the wire-RLC scalars
 COMBINED_BUCKET = 4               # the bucket of the combined row
+RAGGED_BUCKET = 5                 # K1/K2: not a multiple of a block's checks
 HOST_LANES = 16                   # lanes of K5 / K6 checked on the host
 EDGE_LANES = 12                   # K5: u = 0 and random u; K6: x off the
                                   # curve, outside G2, rejected rows
@@ -288,11 +290,12 @@ def phase_build(state) -> dict:
                            f"{sorted(want)}")
     state["ptxas"] = kernels
     # the out-of-line slot operations of K5, K6 and the MSM (csrc/
-    # g2_group.cuh gg_*, h2c.cu k6_*): their frames are not in the
-    # kernels' own ptxas lines
+    # g2_group.cuh gg_*, h2c.cu k6_*) and of K1 and K2 (csrc/f12_group.cuh
+    # fo_*): their frames are not in the kernels' own ptxas lines
     state["group_callees"] = {
         lib: {f: v for f, v in infos[lib]["functions"].items()
-              if "gg_" in f or "k6_" in f} for lib in ("h2c", "msm")}
+              if "gg_" in f or "k6_" in f or "fo_" in f}
+        for lib in ("h2c", "msm", "pairing")}
     return {"build_seconds": {k: v["build_seconds"] for k, v in infos.items()},
             "wall_seconds": time.perf_counter() - t0,
             "ptxas": kernels, "group_callees": state["group_callees"],
@@ -377,9 +380,10 @@ def _nbytes(*ts) -> int:
 
 
 def _pairing_kernels(state) -> dict:
-    """K1 and K2 against their plain versions at the buckets of both
-    paths: MAIN_BUCKET (the catch-up span) and LIVE_BUCKET (the live
-    round), every lane with its own inputs."""
+    """K1 and K2 against their plain versions at the buckets of the
+    paths: MAIN_BUCKET (the catch-up span), LIVE_BUCKET (the live round),
+    COMBINED_BUCKET (the combined row) and RAGGED_BUCKET (a block's last
+    warp without a check), every lane with its own inputs."""
     from drand_tpu_torch.ops import field, pairing as pp
     from drand_tpu_torch.ops.limb import unpack_ints
     from drand_tpu_torch.tools._common import time_ms
@@ -393,13 +397,16 @@ def _pairing_kernels(state) -> dict:
     live = _against_plain(pp, field, xl, yl, ql)
     xc, yc, qc = (t[:COMBINED_BUCKET].contiguous() for t in (xp, yp, q))
     comb = _against_plain(pp, field, xc, yc, qc)
+    xr, yr, qr = (t[:RAGGED_BUCKET].contiguous() for t in (xp, yp, q))
+    ragged = _against_plain(pp, field, xr, yr, qr)
     f_k, gt_k, ok_k = main["f"], main["gt"], main["ok"]
     # the Miller step kernel is held against K1 on these lanes (probes)
     state["k1_main"] = (xp, yp, q, f_k)
 
     verdicts_ok = (ok_k.cpu().tolist() == expect
                    and live["ok"].cpu().tolist() == expect[:LIVE_BUCKET]
-                   and comb["ok"].cpu().tolist() == expect[:COMBINED_BUCKET])
+                   and comb["ok"].cpu().tolist() == expect[:COMBINED_BUCKET]
+                   and ragged["ok"].cpu().tolist() == expect[:RAGGED_BUCKET])
     oracle_ok = all(unpack_ints(gt[8]).reshape(-1).tolist() == oracle
                     for gt in (gt_k, live["gt"]))
     k1_ms = time_ms(lambda: pp.miller_loop(xp, yp, q), TIMED_LAUNCHES)
@@ -410,6 +417,9 @@ def _pairing_kernels(state) -> dict:
     k1_comb_ms = time_ms(lambda: pp.miller_loop(xc, yc, qc), TIMED_LAUNCHES)
     k2_comb_ms = time_ms(lambda: pp.final_exp_verdict(comb["f"]),
                          TIMED_LAUNCHES)
+    k1_ragged_ms = time_ms(lambda: pp.miller_loop(xr, yr, qr), TIMED_LAUNCHES)
+    k2_ragged_ms = time_ms(lambda: pp.final_exp_verdict(ragged["f"]),
+                           TIMED_LAUNCHES)
 
     k1_bound, k1_by = _bound_ms(main["k1_products"] * b,
                                 _nbytes(xp, yp, q, f_k))
@@ -421,7 +431,7 @@ def _pairing_kernels(state) -> dict:
             "source": "drand_tpu_torch/csrc/pairing.cu",
             "replaces": "drand_tpu/ops/pallas_pairing.py:335",
             "max_abs_err": max(main["k1_err"], live["k1_err"],
-                               comb["k1_err"]),
+                               comb["k1_err"], ragged["k1_err"]),
             "ms": k1_ms, "plain_ms": main["k1_plain_ms"],
             "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
             "fp_products_per_check": main["k1_products"]},
@@ -430,13 +440,19 @@ def _pairing_kernels(state) -> dict:
             "source": "drand_tpu_torch/csrc/pairing.cu",
             "replaces": "drand_tpu/ops/pallas_pairing.py:376",
             "max_abs_err": max(main["k2_err"], live["k2_err"],
-                               comb["k2_err"]),
+                               comb["k2_err"], ragged["k2_err"]),
             "ms": k2_ms, "plain_ms": main["k2_plain_ms"],
             "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
             "fp_products_per_check": main["k2_products"]},
     }
+    for key in state["kernels"]:
+        ptx = state["ptxas"][state["kernels"][key]["name"]]
+        state["kernels"][key].update(
+            registers=ptx["registers"], stack_bytes=ptx["stack_bytes"],
+            callee_stack_bytes=_callee_stack("pairing", state))
     errs = {f"{k}_at_{n}": r[k] for n, r in ((b, main), (LIVE_BUCKET, live),
-                                             (COMBINED_BUCKET, comb))
+                                             (COMBINED_BUCKET, comb),
+                                             (RAGGED_BUCKET, ragged))
             for k in ("k1_err", "k2_err")}
     if any(errs.values()) or not verdicts_ok or not oracle_ok:
         raise RuntimeError(f"kernel mismatch: {errs}, verdicts ok "
@@ -445,8 +461,11 @@ def _pairing_kernels(state) -> dict:
                "final_exp_verdict": (k2_live_ms, live["k2_plain_ms"])}
     comb_ms = {"miller_loop": (k1_comb_ms, comb["k1_plain_ms"]),
                "final_exp_verdict": (k2_comb_ms, comb["k2_plain_ms"])}
+    ragged_ms = {"miller_loop": k1_ragged_ms,
+                 "final_exp_verdict": k2_ragged_ms}
     return {"batch": b, "live_batch": LIVE_BUCKET,
-            "combined_batch": COMBINED_BUCKET, "tolerance": 0,
+            "combined_batch": COMBINED_BUCKET,
+            "ragged_batch": RAGGED_BUCKET, "tolerance": 0,
             "errors": errs, "launches": dict(pp.LAUNCHES),
             "verdicts_match_expected": verdicts_ok,
             "gt_matches_host_oracle": oracle_ok,
@@ -457,6 +476,10 @@ def _pairing_kernels(state) -> dict:
                          "plain_ms_at_128": live_ms[key][1],
                          "ms_at_4": comb_ms[key][0],
                          "plain_ms_at_4": comb_ms[key][1],
+                         "ms_at_5": ragged_ms[key],
+                         "registers": k["registers"],
+                         "stack_bytes": k["stack_bytes"],
+                         "callee_stack_bytes": k["callee_stack_bytes"],
                          "bound_ms": k["bound_ms"],
                          "fp_products_per_check": k["fp_products_per_check"]}
                         for key, k in state["kernels"].items()]}
@@ -1722,16 +1745,17 @@ def _run_phases(state, start: float) -> int:
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
-    # launches on each kernel's own main path: the host-prep catch-up span
-    # for K1 and K2, the 67-of-100 round (all partials valid) for the MSM
-    # and the Horner, the corrupted wire span for K5, K6 and the MSM at the
-    # wire-RLC combine's shape, one run of each probe tool for the probe
+    # launches on each kernel's own main path: the corrupted wire span
+    # (the catch-up metric's path) for K1, K2, K5, K6 and the MSM at the
+    # wire-RLC combine's shape, the 67-of-100 round (all partials valid)
+    # for the MSM and the Horner, one run of each probe tool for the probe
     # kernels
     launches = {**state["main_launches"], **state["probe_launches"],
                 **{k: state["threshold_launches"][k] for k in ("msm",
                                                                "horner")},
-                **{k: state["wire_launches"][k] for k in ("hash_to_g2",
-                                                          "decompress_g2")},
+                **{k: state["wire_launches"][k] for k in (
+                    "hash_to_g2", "decompress_g2", "miller_loop",
+                    "final_exp_verdict")},
                 "msm_wire_rlc": state["wire_launches"]["msm"]}
     emit({"phase": "summary", "script_seconds": time.perf_counter() - start,
           "main_path_launches": launches})

@@ -8,8 +8,7 @@
 // reduced below p (CIOS Montgomery product, conditional subtraction after
 // each add/sub), so no lazy-carry bound has to be proven. The formulas are
 // those of ops/field.py (the plain PyTorch version): Karatsuba f2/f6/f12
-// products, complex f12 squaring, Granger-Scott cyclotomic squaring,
-// gamma-table Frobenius, Fermat inversion.
+// products, complex f12 squaring, Fermat inversion.
 //
 // What bounds it on an H100: integer multiply-adds. One Fp product is 288
 // 32x32->64 multiply-adds (144 for the product, 144 for the reduction);
@@ -17,10 +16,11 @@
 // state in one thread and every tower function out of line
 // (__noinline__), which keeps the kernels small enough to compile in
 // seconds; its cost is register spills and call overhead, measured in
-// PERF.md. K1, K2, K6, the MSM and the Horner run on it. K5 runs on
+// PERF.md. The Horner and the Miller step probe run on it. K1 and K2
+// (csrc/f12_group.cuh), K5, K6 and the MSM (csrc/g2_group.cuh) run on
 // fp_group.cuh instead: a group of threads per check, each Fp value's
-// words spread over four threads (csrc/h2c.cu); the other kernels wait
-// for the same redesign (ROADMAP, queue 2).
+// words spread over four threads; the Horner waits for the same redesign
+// (ROADMAP, queue 2).
 //
 // Constants (p, -p^-1 mod 2^32, R mod p, the Frobenius gamma rows and the
 // exponent bit tables) are NOT written here: ops/pairing.py computes them
@@ -97,13 +97,6 @@ FP_INL void fp_copy(Fp& r, const Fp& a) {
 FP_INL void fp_zero(Fp& r) {
 #pragma unroll
   for (int i = 0; i < NW; ++i) r.w[i] = 0u;
-}
-
-FP_INL bool fp_eq(const Fp& a, const Fp& b) {
-  uint32_t d = 0;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) d |= a.w[i] ^ b.w[i];
-  return d == 0u;
 }
 
 // r = s - p if s >= p, else s (s < 2p; s has no carry word since 2p < 2^384)
@@ -226,11 +219,6 @@ FP_INL void f2_neg(Fp2& r, const Fp2& a) {
 
 FP_INL void f2_dbl(Fp2& r, const Fp2& a) { f2_add(r, a, a); }
 
-FP_INL void f2_conj(Fp2& r, const Fp2& a) {
-  fp_copy(r.c0, a.c0);
-  fp_neg(r.c1, a.c1);
-}
-
 FP_INL void f2_zero(Fp2& r) {
   fp_zero(r.c0);
   fp_zero(r.c1);
@@ -345,34 +333,6 @@ FP_FN void f6_mul(Fp6& r, const Fp6& a, const Fp6& b) {
   f2_add(r.c[2], sa, v1);
 }
 
-FP_FN void f6_inv(Fp6& r, const Fp6& a) {
-  Fp2 t0, t1, t2, s, d;
-  f2_sqr(t0, a.c[0]);
-  f2_mul(s, a.c[1], a.c[2]);
-  f2_mul_by_xi(s, s);
-  f2_sub(t0, t0, s);
-  f2_sqr(t1, a.c[2]);
-  f2_mul_by_xi(t1, t1);
-  f2_mul(s, a.c[0], a.c[1]);
-  f2_sub(t1, t1, s);
-  f2_sqr(t2, a.c[1]);
-  f2_mul(s, a.c[0], a.c[2]);
-  f2_sub(t2, t2, s);
-  // d = a0·t0 + xi·(a2·t1) + xi·(a1·t2)
-  f2_mul(d, a.c[0], t0);
-  f2_mul(s, a.c[2], t1);
-  f2_mul_by_xi(s, s);
-  Fp2 s2;
-  f2_mul(s2, a.c[1], t2);
-  f2_mul_by_xi(s2, s2);
-  f2_add(s, s, s2);
-  f2_add(d, d, s);
-  f2_inv(d, d);
-  f2_mul(r.c[0], t0, d);
-  f2_mul(r.c[1], t1, d);
-  f2_mul(r.c[2], t2, d);
-}
-
 // ---------------------------------------------------------------------------
 // Fp12
 // ---------------------------------------------------------------------------
@@ -421,80 +381,3 @@ FP_FN void f12_sqr(Fp12& r, const Fp12& a) {
 
 // w-basis access: coefficient of w^k is c[k % 2].c[k / 2]
 #define W_AT(a, k) ((a).c[(k) % 2].c[(k) / 2])
-
-// a^(p^power), power 1 or 2
-FP_FN void f12_frobenius(Fp12& r, const Fp12& a, int power) {
-  Fp12 out;
-#pragma unroll 1
-  for (int k = 0; k < 6; ++k) {
-    Fp2 x = W_AT(a, k);
-    if (power & 1) f2_conj(x, x);
-    Fp2 gk = power == 1 ? C.gamma1[k] : C.gamma2[k];
-    f2_mul(W_AT(out, k), x, gk);
-  }
-  r = out;
-}
-
-// Granger-Scott squaring of a cyclotomic element (w-basis g0..g5):
-// three Fp4 squarings (t0 + xi·t1, (x+y)^2 - t0 - t1), then 3t -/+ 2g.
-FP_FN void f12_cyclotomic_sqr(Fp12& r, const Fp12& a) {
-  Fp2 lo[3], hi[3], t0, t1, s;
-#pragma unroll 1
-  for (int k = 0; k < 3; ++k) {
-    const Fp2& x = W_AT(a, k);
-    const Fp2& y = W_AT(a, k + 3);
-    f2_sqr(t0, x);
-    f2_sqr(t1, y);
-    f2_add(s, x, y);
-    f2_sqr(s, s);
-    f2_mul_by_xi(lo[k], t1);
-    f2_add(lo[k], t0, lo[k]);
-    f2_add(t0, t0, t1);
-    f2_sub(hi[k], s, t0);
-  }
-  // h = [fmi(g0, a0), gpl(g1, xi·c1), fmi(g2, b0),
-  //      gpl(g3, a1), fmi(g4, c0), gpl(g5, b1)]
-  // with (a, b, c) = pairs 0, 1, 2; fmi(g, t) = 3t - 2g, gpl(g, t) = 3t + 2g
-  Fp2 tv[6];
-  tv[0] = lo[0];
-  f2_mul_by_xi(tv[1], hi[2]);
-  tv[2] = lo[1];
-  tv[3] = hi[0];
-  tv[4] = lo[2];
-  tv[5] = hi[1];
-  Fp12 out;
-#pragma unroll 1
-  for (int k = 0; k < 6; ++k) {
-    const Fp2& g = W_AT(a, k);
-    if (k % 2 == 0) f2_sub(s, tv[k], g);
-    else f2_add(s, tv[k], g);
-    f2_dbl(s, s);
-    f2_add(W_AT(out, k), s, tv[k]);
-  }
-  r = out;
-}
-
-FP_FN void f12_inv(Fp12& r, const Fp12& a) {
-  Fp6 t0, t1;
-  f6_mul(t0, a.c[0], a.c[0]);
-  f6_mul(t1, a.c[1], a.c[1]);
-  f6_mul_by_v(t1, t1);
-  f6_sub(t0, t0, t1);
-  f6_inv(t0, t0);
-  f6_mul(t1, a.c[1], t0);
-  f6_mul(r.c[0], a.c[0], t0);
-  f6_neg(r.c[1], t1);
-}
-
-FP_INL bool f12_is_one(const Fp12& a) {
-  Fp12 one;
-  f12_one(one);
-  bool eq = true;
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      eq = eq && fp_eq(a.c[h].c[i].c0, one.c[h].c[i].c0) &&
-           fp_eq(a.c[h].c[i].c1, one.c[h].c[i].c1);
-  return eq;
-}

@@ -1,40 +1,54 @@
 // The batched BLS product check e(-g1, sig)·e(pk, H(m)) == 1 on Hopper:
-// two kernels, one thread per lane (one check = two Miller pairs).
+// two kernels, one warp per check (one check = two Miller pairs).
 //
 // K1 miller_loop_kernel replaces the JAX package's Miller-loop Pallas
 // kernels, ops/pallas_pairing.py:_miller_kernel and its grid twin
 // _miller_grid_kernel. The TPU walked the 63 iterations as a sequential
 // grid axis with the state in VMEM scratch; here the loop runs inside the
-// thread, with the add step only on the set bits of |x| (the flag table in
+// warp, with the add step only on the set bits of |x| (the flag table in
 // the constant buffer). Line formulas are those of _dbl_step, _add_step
-// and _lines_product (pallas_pairing.py:100-172), so the output f equals
-// the JAX kernel's f, not only after the final exponentiation.
+// and _lines_product (pallas_pairing.py:100-172), written once below for
+// the step kernel and once as K1's step tables (ops/pairing.py
+// _sched_dbl_step ...), so the output f equals the JAX kernel's f, not
+// only after the final exponentiation.
 //
 // K2 final_exp_verdict_kernel replaces, fused, the final-exponentiation
 // Pallas kernels of pallas_pairing.py: _easy_kernel/_easy_grid_kernel,
 // _pow_kernel/_pow_grid_kernel (five calls), _mul_frob1_kernel,
 // _a4_kernel and _is_one_kernel (and their grid twins). The TPU split
-// them because of Mosaic's VMEM and register limits; one thread holds the
+// them because of Mosaic's VMEM and register limits; one warp runs the
 // whole chain here. It writes the GT value (the CUBE of the canonical
 // pairing, as final_exp_hard_bl and crypto.pairing.final_exponentiation
-// (canonical=False) compute it) and the lane's verdict.
+// (canonical=False) compute it) and the check's verdict.
+//
+// Bound: integer multiply-adds (see fp.cuh): K1 does 11,878 Fp products a
+// check, K2 8,657; inputs and outputs are a few hundred bytes. Each check
+// is one long chain, so the time is that chain's latency, and at the
+// buckets the paths launch (4, 128, 512) the card is far from full. So
+// K1 and K2 run a check on a warp (csrc/f12_group.cuh): each Fp value on
+// a half-group of four threads (fp_group.cuh), the check's Fp2 values in
+// shared-memory slots, and at each step the eight half-groups run eight
+// independent Fp2 operations of the check. The steps are tables
+// (ops/pairing.py compiled_programs): one Miller iteration without and one
+// with the add step (f², both pairs' doubling steps and lines, and their
+// products side by side), the easy part around the Fermat inversion, one
+// cyclotomic squaring, one product by the base, and the glue between the
+// five exponentiations of the Hayashida chain; the loops over the bits of
+// |x|, |x-1| and p-2 (the same on every thread) stay here. F12_CHECKS
+// checks a block; a warp whose check lies past n returns as a whole.
 //
 // miller_step_kernel replaces the prototype tools/proto_miller_grid.py:
 // _miller_grid_kernel, the Miller loop as a grid of N_MILLER steps with f
 // and T carried in VMEM scratch, which tested whether the loop body was too
 // large for the TPU compiler's register allocation. Here one launch runs
-// one iteration (K1's own miller_iteration) for every lane, f and T live in
-// device memory between launches, the host passes each step's add flag,
-// and the last step writes conj(f): the output equals K1's word for word,
-// and ptxas's registers and spills of the one-iteration body stand beside
-// K1's. Its state (f and T, 432 words a lane) is read and written once a
-// step, a few hundred bytes against some 190 Fp products.
-//
-// Bound: integer multiply-adds (see fp.cuh); inputs and outputs are a few
-// hundred bytes per lane. Design: one thread per lane, blocks of 32 lanes
-// so that a bucket of 512 spreads over 16 SMs; state spills to local
-// memory. Several threads per lane would fill the card; that is a later
-// change.
+// one iteration (miller_iteration below, on fp.cuh's one-thread tower: the
+// design K1 had before it moved to a warp a check) for every lane, f and T
+// live in device memory between launches, the host passes each step's add
+// flag, and the last step writes conj(f): the output equals K1's word for
+// word, and ptxas's registers and spills of the one-iteration body stand
+// for the one-thread tower. Its state (f and T, 432 words a lane) is read
+// and written once a step, a few hundred bytes against some 190 Fp
+// products. One thread a lane, blocks of 32 lanes.
 //
 // Layouts (int32 words of canonical Montgomery values, batch leading):
 //   xp, yp (B, 2, 12)          G1 affine x / y, pair axis
@@ -211,59 +225,6 @@ FP_INL void miller_iteration(Fp12& f, G2Jac* T, const Fp* xp, const Fp* yp,
   }
 }
 
-FP_FN void miller_lane(Fp12& f, const Fp* xp, const Fp* yp, const Fp2* xq,
-                       const Fp2* yq) {
-  G2Jac T[NPAIRS];
-  miller_init(f, T, xq, yq);
-  for (uint32_t i = 0; i < C.n_miller; ++i)
-    miller_iteration(f, T, xp, yp, xq, yq, C.miller_flags[i] != 0);
-  f12_conj(f, f);  // x < 0
-}
-
-// m^(-|e|) for cyclotomic m, MSB-first; e = x (use_x) or x - 1
-FP_FN void cyc_pow_neg(Fp12& r, const Fp12& m, bool use_x) {
-  Fp12 base, acc;
-  f12_conj(base, m);
-  f12_one(acc);
-  const uint32_t nbits = use_x ? C.n_x : C.n_xm1;
-  for (uint32_t i = 0; i < nbits; ++i) {
-    f12_cyclotomic_sqr(acc, acc);
-    if (use_x ? C.bits_x[i] : C.bits_xm1[i]) f12_mul(acc, acc, base);
-  }
-  r = acc;
-}
-
-// Easy part, Hayashida hard part (the cube of the canonical pairing) and
-// the == 1 verdict: pallas_pairing.final_exp_easy_bl and final_exp_hard_bl.
-FP_FN bool final_exp_lane(Fp12& out, const Fp12& f) {
-  Fp12 m, a, b, t;
-  // easy: f1 = conj(f)·f^-1 ; m = frob(f1, 2)·f1
-  f12_inv(t, f);
-  f12_conj(a, f);
-  f12_mul(a, a, t);
-  f12_frobenius(m, a, 2);
-  f12_mul(m, m, a);
-  // a1 = m^-|x-1|, a2 = a1^-|x-1|
-  cyc_pow_neg(a, m, false);
-  cyc_pow_neg(a, a, false);
-  // a3 = a2^-|x|·frob(a2, 1)
-  cyc_pow_neg(b, a, true);
-  f12_frobenius(t, a, 1);
-  f12_mul(a, b, t);
-  // a4 = (a3^-|x|)^-|x|·frob(a3, 2)·conj(a3)
-  cyc_pow_neg(b, a, true);
-  cyc_pow_neg(b, b, true);
-  f12_frobenius(t, a, 2);
-  f12_mul(b, b, t);
-  f12_conj(t, a);
-  f12_mul(b, b, t);
-  // out = a4·(m·cyc_sqr(m))
-  f12_cyclotomic_sqr(t, m);
-  f12_mul(t, m, t);
-  f12_mul(out, b, t);
-  return f12_is_one(out);
-}
-
 FP_INL void load_f12(Fp12& r, const uint32_t* src) {
 #pragma unroll 1
   for (int h = 0; h < 2; ++h)
@@ -286,44 +247,135 @@ FP_INL void store_f12(uint32_t* dst, const Fp12& a) {
 
 #define F12_WORDS (2 * 3 * 2 * NW)
 
+#if defined(__CUDACC__) || defined(GG_WARP_EMULATION)
+// Checks a block: two warps, 2 × 19,712 bytes of slots
+#define F12_CHECKS 2
+#include "f12_group.cuh"
+
+// The programs of the step tables (ops/pairing.py PROGRAMS, same order)
+enum : uint32_t {
+  F12P_K1_INIT = 0, F12P_K1_DBL, F12P_K1_DBL_ADD, F12P_K1_FIN,
+  F12P_K2_EASY_HEAD, F12P_K2_RECIP_ONE, F12P_K2_RECIP_SQR,
+  F12P_K2_RECIP_MUL, F12P_K2_EASY_TAIL, F12P_K2_CYC_SQR, F12P_K2_CYC_MUL,
+  F12P_K2_NEXT, F12P_K2_KEEP, F12P_K2_FROB1, F12P_K2_CLOSE, F12P_COUNT
+};
+
+// The rows of an Fp12 at SRC (F12_WORDS, the (2, 3, 2, 12) layout) into
+// the six slots from S, row r by half-group r
+FG_INL void k12_load_rows(uint32_t s, const uint32_t* src) {
+  const uint32_t r = fo_hg();
+  if (r < 6) fo_put(s + r, src + r * 2 * NW, src + r * 2 * NW + NW);
+}
+
+// The six slots from S to the rows at DST, row r by half-group r
+FG_INL void k12_store_rows(uint32_t* dst, uint32_t s) {
+  const uint32_t r = fo_hg();
+  if (r < 6) fo_get(dst + r * 2 * NW, s + r);
+}
+
+// K1 for one check on the calling threads: xp, yp (2, 12), q (2, 2, 2,
+// 12) -> f (F12_WORDS). Inputs 0-3 are xp0, xp1, yp0, yp1 as (x, 0),
+// 4-7 the four Fp2 coordinates of q, input i loaded by half-group i;
+// k1_init sets T = (Q, 1) and f = 1.
+FG_INL void k1_check(const uint32_t* xp, const uint32_t* yp,
+                     const uint32_t* q, uint32_t* f) {
+  fo_init();
+  fo_put_consts();
+  const uint32_t i = fo_hg();
+  if (i < 4)
+    fo_put(FS.named[NM_P] + i, (i < 2 ? xp : yp) + (i % 2) * NW, nullptr);
+  else
+    fo_put(FS.named[NM_Q] + i - 4, q + (i - 4) * 2 * NW,
+           q + (i - 4) * 2 * NW + NW);
+  __syncwarp();
+  fo_run(F12P_K1_INIT);
+#pragma unroll 1
+  for (uint32_t i = 0; i < C.n_miller; ++i)
+    fo_run(C.miller_flags[i] ? F12P_K1_DBL_ADD : F12P_K1_DBL);
+  fo_run(F12P_K1_FIN);  // conj(f): x < 0
+  k12_store_rows(f, FS.named[NM_OUT]);
+}
+
+// m^(-|e|) into the acc slots, MSB first, from base = conj(m) and acc = 1
+// (set by the program before): a cyclotomic squaring every bit, a product
+// by the base on the set ones
+FG_INL void k2_pow(const uint32_t* bits, uint32_t nbits) {
+#pragma unroll 1
+  for (uint32_t i = 0; i < nbits; ++i) {
+    fo_run(F12P_K2_CYC_SQR);
+    if (bits[i]) fo_run(F12P_K2_CYC_MUL);
+  }
+}
+
+// K2 for one check on the calling threads: f (F12_WORDS) -> gt
+// (F12_WORDS) and the verdict. The easy part (f12_inv's
+// Fermat inversion of one Fp norm on half-group 0, over the bits of
+// p-2), then the Hayashida chain:
+// a1 = m^-|x-1|, a2 = a1^-|x-1|, a3 = a2^-|x|·frob(a2, 1), a4 =
+// (a3^-|x|)^-|x|·frob(a3, 2)·conj(a3), gt = a4·(m·cyc_sqr(m)).
+FG_INL uint32_t k2_check(const uint32_t* f, uint32_t* gt) {
+  fo_init();
+  fo_put_consts();
+  const uint32_t k = fo_hg();
+  if (k < 6) {
+    fo_put(FS.named[NM_GAMMA1] + k, C.gamma1[k].c0.w, C.gamma1[k].c1.w);
+    fo_put(FS.named[NM_GAMMA2] + k, C.gamma2[k].c0.w, C.gamma2[k].c1.w);
+  }
+  k12_load_rows(FS.named[NM_F], f);
+  __syncwarp();
+  fo_run(F12P_K2_EASY_HEAD);
+  fo_run(F12P_K2_RECIP_ONE);
+#pragma unroll 1
+  for (uint32_t i = 0; i < C.n_pm2; ++i) {
+    fo_run(F12P_K2_RECIP_SQR);
+    if (C.pm2[i]) fo_run(F12P_K2_RECIP_MUL);
+  }
+  fo_run(F12P_K2_EASY_TAIL);
+  k2_pow(C.bits_xm1, C.n_xm1);
+  fo_run(F12P_K2_NEXT);
+  k2_pow(C.bits_xm1, C.n_xm1);
+  fo_run(F12P_K2_KEEP);
+  k2_pow(C.bits_x, C.n_x);
+  fo_run(F12P_K2_FROB1);
+  k2_pow(C.bits_x, C.n_x);
+  fo_run(F12P_K2_NEXT);
+  k2_pow(C.bits_x, C.n_x);
+  fo_run(F12P_K2_CLOSE);
+  const uint32_t one = fo_is_one(FS.named[NM_OUT]);
+  k12_store_rows(gt, FS.named[NM_OUT]);
+  return one;
+}
+#endif  // __CUDACC__ || GG_WARP_EMULATION
+
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
-__global__ void __launch_bounds__(LANES_PER_BLOCK)
+// The calling warp's check; a warp whose check lies past n returns as
+// a whole
+__device__ __forceinline__ int f12_check() {
+  return blockIdx.x * F12_CHECKS + (int)(threadIdx.x / 32u);
+}
+
+__global__ void __launch_bounds__(F12_BLOCK)
 miller_loop_kernel(const uint32_t* __restrict__ xp,
                    const uint32_t* __restrict__ yp,
                    const uint32_t* __restrict__ q, uint32_t* __restrict__ f,
                    int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  Fp px[NPAIRS], py[NPAIRS];
-  Fp2 qx[NPAIRS], qy[NPAIRS];
-#pragma unroll
-  for (int j = 0; j < NPAIRS; ++j) {
-    load_fp(px[j], xp + (lane * NPAIRS + j) * NW);
-    load_fp(py[j], yp + (lane * NPAIRS + j) * NW);
-    const uint32_t* qj = q + (lane * NPAIRS + j) * 4 * NW;
-    load_fp(qx[j].c0, qj);
-    load_fp(qx[j].c1, qj + NW);
-    load_fp(qy[j].c0, qj + 2 * NW);
-    load_fp(qy[j].c1, qj + 3 * NW);
-  }
-  Fp12 acc;
-  miller_lane(acc, px, py, qx, qy);
-  store_f12(f + lane * F12_WORDS, acc);
+  const int c = f12_check();
+  if (c >= n) return;
+  k1_check(xp + (size_t)c * NPAIRS * NW, yp + (size_t)c * NPAIRS * NW,
+           q + (size_t)c * NPAIRS * 4 * NW, f + (size_t)c * F12_WORDS);
 }
 
-__global__ void __launch_bounds__(LANES_PER_BLOCK)
+__global__ void __launch_bounds__(F12_BLOCK)
 final_exp_verdict_kernel(const uint32_t* __restrict__ f,
                          uint32_t* __restrict__ gt, int32_t* __restrict__ ok,
                          int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  Fp12 in, out;
-  load_f12(in, f + lane * F12_WORDS);
-  const bool one = final_exp_lane(out, in);
-  store_f12(gt + lane * F12_WORDS, out);
-  ok[lane] = one ? 1 : 0;
+  const int c = f12_check();
+  if (c >= n) return;
+  const uint32_t one =
+      k2_check(f + (size_t)c * F12_WORDS, gt + (size_t)c * F12_WORDS);
+  if (threadIdx.x % 32u == 0) ok[c] = one ? 1 : 0;
 }
 
 #define T_WORDS (NPAIRS * 3 * 2 * NW)
@@ -390,14 +442,33 @@ static dim3 grid_for(int n) {
   return dim3((n + LANES_PER_BLOCK - 1) / LANES_PER_BLOCK);
 }
 
+// K1's and K2's constant buffer (ops/pairing.py pairing_consts): struct
+// Consts, then the step tables, struct FoSched
+static cudaError_t load_pairing_consts(const void* consts, int n_words,
+                                       cudaStream_t s) {
+  if (n_words * sizeof(uint32_t) != sizeof(Consts) + sizeof(FoSched))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemcpyToSymbolAsync(C, consts, sizeof(Consts), 0,
+                                          cudaMemcpyDeviceToDevice, s);
+  if (e != cudaSuccess) return e;
+  return cudaMemcpyToSymbolAsync(FS, (const char*)consts + sizeof(Consts),
+                                 sizeof(FoSched), 0, cudaMemcpyDeviceToDevice,
+                                 s);
+}
+
+static dim3 f12_grid(int n) {
+  return dim3((n + F12_CHECKS - 1) / F12_CHECKS);
+}
+
 extern "C" int miller_loop_launch(const void* consts, int n_words,
                                   const void* xp, const void* yp,
                                   const void* q, void* f, int n,
                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = load_consts(consts, n_words, s);
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = load_pairing_consts(consts, n_words, s);
   if (e != cudaSuccess) return (int)e;
-  miller_loop_kernel<<<grid_for(n), LANES_PER_BLOCK, 0, s>>>(
+  miller_loop_kernel<<<f12_grid(n), F12_BLOCK, 0, s>>>(
       (const uint32_t*)xp, (const uint32_t*)yp, (const uint32_t*)q,
       (uint32_t*)f, n);
   return (int)cudaGetLastError();
@@ -407,9 +478,10 @@ extern "C" int final_exp_verdict_launch(const void* consts, int n_words,
                                         const void* f, void* gt, void* ok,
                                         int n, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = load_consts(consts, n_words, s);
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = load_pairing_consts(consts, n_words, s);
   if (e != cudaSuccess) return (int)e;
-  final_exp_verdict_kernel<<<grid_for(n), LANES_PER_BLOCK, 0, s>>>(
+  final_exp_verdict_kernel<<<f12_grid(n), F12_BLOCK, 0, s>>>(
       (const uint32_t*)f, (uint32_t*)gt, (int32_t*)ok, n);
   return (int)cudaGetLastError();
 }

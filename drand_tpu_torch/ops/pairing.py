@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -38,7 +39,7 @@ import torch
 from ..crypto import fields as hf
 from ..crypto.curves import PointG1
 from ..crypto.fields import P, X_BLS
-from . import field as fd
+from . import f12_group as fg, field as fd
 from .limb import (N0_WORD, NWORDS, ONE_MONT, R_MONT, fp_words,
                    halves_to_words, int_to_words, words_to_halves)
 
@@ -83,14 +84,186 @@ def kernel_consts() -> np.ndarray:
                            *gammas, MILLER_FLAGS, BITS_X, BITS_XM1, PM2])
 
 
+# ---------------------------------------------------------------------------
+# K1 and K2 as step tables of csrc/f12_group.cuh (ops/f12_group.py): the
+# line formulas of _dbl_step, _add_step and _lines_product below
+# (pairing.cu's dbl_step, add_step, lines_product), the easy part and the
+# Hayashida chain of final_exp_plain, cut into programs that the kernels
+# run in this order, with the loops over the bit tables between them.
+# ---------------------------------------------------------------------------
+
+def _sched_dbl_step(g, T, xp, yp):
+    X, Y, Z = T
+    X2, Y2, Z2 = g.sqr(X), g.sqr(Y), g.sqr(Z)
+    YZ3 = g.mul(Y, g.mul(Z2, Z))
+    lam = g.mul3(g.mul(X2, Z2))
+    c0 = g.xi(g.mul(g.dbl(YZ3), yp))          # xi·(2·YZ3·yp)
+    c5 = g.neg(g.mul(lam, xp))                # -(lam·xp)
+    c3 = g.sub(g.mul3(g.mul(X2, X)), g.dbl(Y2))
+    C = g.sqr(Y2)
+    D = g.dbl(g.sub(g.sqr(g.add(X, Y2)), g.add(X2, C)))
+    E = g.mul3(X2)
+    Xn = g.sub(g.sqr(E), g.dbl(D))
+    Yn = g.sub(g.mul(E, g.sub(D, Xn)), g.dbl(g.dbl(g.dbl(C))))
+    Zn = g.dbl(g.mul(Y, Z))
+    return (Xn, Yn, Zn), (c0, c3, c5)
+
+
+def _sched_add_step(g, T, xq, yq, xp, yp):
+    X, Y, Z = T
+    Z2 = g.sqr(Z)
+    U2 = g.mul(xq, Z2)
+    S2 = g.mul(yq, g.mul(Z2, Z))
+    H, M = g.sub(U2, X), g.sub(S2, Y)
+    HZ = g.mul(H, Z)
+    c0 = g.xi(g.mul(HZ, yp))
+    c5 = g.neg(g.mul(M, xp))
+    c3 = g.sub(g.mul(M, xq), g.mul(HZ, yq))
+    HH = g.sqr(H)
+    HHH, V = g.mul(HH, H), g.mul(X, HH)
+    Xn = g.sub(g.sqr(M), g.add(HHH, g.dbl(V)))
+    Yn = g.sub(g.mul(M, g.sub(V, Xn)), g.mul(Y, HHH))
+    return (Xn, Yn, g.mul(Z, H)), (c0, c3, c5)
+
+
+def _sched_lines_product(g, la, lb):
+    pa = [la[0], la[1], la[2], g.add(la[0], la[1]), g.add(la[0], la[2]),
+          g.add(la[1], la[2])]
+    pb = [lb[0], lb[1], lb[2], g.add(lb[0], lb[1]), g.add(lb[0], lb[2]),
+          g.add(lb[1], lb[2])]
+    m = [g.mul(x, y) for x, y in zip(pa, pb)]
+    w3 = g.sub(m[3], g.add(m[0], m[1]))
+    w5 = g.sub(m[4], g.add(m[0], m[2]))
+    w2 = g.xi(g.sub(m[5], g.add(m[1], m[2])))
+    w0 = g.add(m[0], g.xi(m[1]))
+    return fg.from_w([w0, g.zero, w2, w3, g.xi(m[2]), w5])
+
+
+def _k1_iteration(name: str, add: bool):
+    """f = f²·L(dbl), T = 2T, and on a set bit f·L(add), T = T + Q."""
+    g = fg.Prog(name)
+    f = g.slots("f", 6)
+    T = [g.slots("t", 6)[:3], g.slots("t", 6)[3:]]
+    xp, yp = g.slots("p", 4)[:2], g.slots("p", 4)[2:]
+    q = g.slots("q", 4)
+    xq, yq = q[0::2], q[1::2]
+    f = fg.f12_sqr(g, f)
+    steps = [_sched_dbl_step(g, T[j], xp[j], yp[j]) for j in range(2)]
+    T = [s[0] for s in steps]
+    f = fg.f12_mul(g, f, _sched_lines_product(g, steps[0][1], steps[1][1]))
+    if add:
+        steps = [_sched_add_step(g, T[j], xq[j], yq[j], xp[j], yp[j])
+                 for j in range(2)]
+        T = [s[0] for s in steps]
+        f = fg.f12_mul(g, f, _sched_lines_product(g, steps[0][1],
+                                                  steps[1][1]))
+    g.outputs(f, "f")
+    g.outputs(list(T[0]) + list(T[1]), "t")
+    return g
+
+
+def _k1_progs():
+    init = fg.Prog("k1_init")                 # T = (Q, 1), f = 1
+    q = init.slots("q", 4)
+    init.outputs([q[0], q[1], init.one, q[2], q[3], init.one], "t")
+    init.outputs([init.one] + [init.zero] * 5, "f")
+    fin = fg.Prog("k1_fin")                   # out = conj(f): x < 0
+    fin.outputs(fg.f12_conj(fin, fin.slots("f", 6)), "out")
+    return [init, _k1_iteration("k1_dbl", False),
+            _k1_iteration("k1_dbl_add", True), fin]
+
+
+def _restart(g, src):
+    """base = conj(src), acc = 1: the start of a cyc_pow_neg."""
+    g.outputs(fg.f12_conj(g, src), "base")
+    g.outputs([g.one] + [g.zero] * 5, "acc")
+
+
+def _k2_progs():
+    N = fg.NAMED
+    head = fg.Prog("k2_easy_head")            # f12_inv up to Fermat
+    d, terms, nrm = fg.f12_inv_head(head, head.slots("f", 6))
+    head.outputs([d] + terms, "inv")
+    head.output(nrm, N["norm"])
+    rinit = fg.Prog("k2_recip_one")
+    rinit.output(rinit.one, N["recip"])
+    tail = fg.Prog("k2_easy_tail")            # f^-1, f1, m; start a1
+    f = tail.slots("f", 6)
+    inv = tail.slots("inv", 4)
+    finv = fg.f12_inv_tail(tail, f, inv[0], inv[1:], tail.slot("recip"))
+    f1 = fg.f12_mul(tail, fg.f12_conj(tail, f), finv)
+    m = fg.f12_mul(tail, fg.f12_frobenius(tail, f1, 2), f1)
+    tail.outputs(m, "m")
+    _restart(tail, m)
+    csqr = fg.Prog("k2_cyc_sqr")
+    csqr.outputs(fg.f12_cyclotomic_sqr(csqr, csqr.slots("acc", 6)), "acc")
+    cmul = fg.Prog("k2_cyc_mul")
+    cmul.outputs(fg.f12_mul(cmul, cmul.slots("acc", 6),
+                            cmul.slots("base", 6)), "acc")
+    nxt = fg.Prog("k2_next")                  # a1 -> a2, a3 -> a3^-|x|
+    _restart(nxt, nxt.slots("acc", 6))
+    keep = fg.Prog("k2_keep")                 # a = a2
+    acc = keep.slots("acc", 6)
+    keep.outputs(acc, "a")
+    _restart(keep, acc)
+    frob = fg.Prog("k2_frob1")                # a = a2^-|x|·frob(a2, 1)
+    a3 = fg.f12_mul(frob, frob.slots("acc", 6),
+                    fg.f12_frobenius(frob, frob.slots("a", 6), 1))
+    frob.outputs(a3, "a")
+    _restart(frob, a3)
+    close = fg.Prog("k2_close")               # a4·(m·cyc_sqr(m))
+    a = close.slots("a", 6)
+    b = fg.f12_mul(close, close.slots("acc", 6), fg.f12_frobenius(close, a, 2))
+    b = fg.f12_mul(close, b, fg.f12_conj(close, a))
+    m = close.slots("m", 6)
+    t = fg.f12_mul(close, m, fg.f12_cyclotomic_sqr(close, m))
+    close.outputs(fg.f12_mul(close, b, t), "out")
+    return [head, rinit, tail, csqr, cmul, nxt, keep, frob, close]
+
+
+# the programs in table order (the F12P_* enum of csrc/pairing.cu)
+PROGRAMS = ("k1_init", "k1_dbl", "k1_dbl_add", "k1_fin", "k2_easy_head",
+            "k2_recip_one", "k2_recip_sqr", "k2_recip_mul", "k2_easy_tail",
+            "k2_cyc_sqr", "k2_cyc_mul", "k2_next", "k2_keep", "k2_frob1",
+            "k2_close")
+
+def compiled_programs() -> list:
+    """K1's and K2's programs, compiled for the half-groups of a warp, in
+    PROGRAMS order."""
+    N = fg.NAMED
+    progs = [fg.compile_prog(p) for p in _k1_progs()]
+    k2 = [fg.compile_prog(p) for p in _k2_progs()]
+    progs += k2[:2]
+    progs.append(fg.raw_prog("k2_recip_sqr", fg.FMUL, N["recip"],
+                             N["recip"], N["recip"]))
+    progs.append(fg.raw_prog("k2_recip_mul", fg.FMUL, N["recip"],
+                             N["recip"], N["norm"]))
+    progs += k2[2:]
+    assert tuple(p.name for p in progs) == PROGRAMS
+    return progs
+
+
+@functools.cache
+def f12_tables() -> np.ndarray:
+    """struct FoSched of csrc/f12_group.cuh for K1 and K2, as int32
+    words."""
+    return fg.pack_tables(compiled_programs())
+
+
+def pairing_consts() -> np.ndarray:
+    """K1's and K2's constant buffer: kernel_consts() (struct Consts),
+    then their step tables (struct FoSched)."""
+    return np.concatenate([kernel_consts(), f12_tables()])
+
+
 _CONSTS_DEV: dict[str, torch.Tensor] = {}
 
 
-def _consts_on(device) -> torch.Tensor:
-    key = str(device)
+def _consts_on(device, build=kernel_consts) -> torch.Tensor:
+    key = f"{build.__name__}:{device}"
     t = _CONSTS_DEV.get(key)
     if t is None:
-        t = torch.from_numpy(kernel_consts()).to(device)
+        t = torch.from_numpy(build()).to(device)
         _CONSTS_DEV[key] = t
     return t
 
@@ -277,7 +450,7 @@ def miller_loop(xp: torch.Tensor, yp: torch.Tensor,
     f = torch.empty((b,) + _F12_SHAPE, dtype=torch.int32, device=xp.device)
     if b == 0:
         return f
-    consts = _consts_on(xp.device)
+    consts = _consts_on(xp.device, pairing_consts)
     lib = _kernels()
     with _launch_on(xp) as stream:
         err = lib.miller_loop_launch(_ptr(consts), consts.numel(), _ptr(xp),
@@ -299,7 +472,7 @@ def final_exp_verdict(f: torch.Tensor):
     ok = torch.empty((b,), dtype=torch.int32, device=f.device)
     if b == 0:
         return gt, ok
-    consts = _consts_on(f.device)
+    consts = _consts_on(f.device, pairing_consts)
     lib = _kernels()
     with _launch_on(f) as stream:
         err = lib.final_exp_verdict_launch(_ptr(consts), consts.numel(),

@@ -1,6 +1,6 @@
-"""The Miller loop one iteration a launch, against K1's loop in one
-thread: ``miller_step_kernel`` of ``csrc/pairing.cu``, its wrapper with a
-launch counter, and its plain PyTorch version.
+"""The Miller loop one iteration a launch, against K1's whole loop:
+``miller_step_kernel`` of ``csrc/pairing.cu``, its wrapper with a launch
+counter, and its plain PyTorch version.
 
 Counterpart of the JAX package's ``tools/proto_miller_grid.py`` (the
 Pallas grid ``miller_grid`` over ``_miller_grid_kernel``), which ran the
@@ -9,10 +9,12 @@ VMEM scratch, to test whether the loop body was too large for the TPU
 compiler's register allocation. Here ``miller_grid`` launches the step
 kernel 63 times; f and T stay in device memory between launches, the host
 passes each step's add flag from ``ops/pairing.MILLER_FLAGS``, and the
-last step writes conj(f). The step runs K1's own ``miller_iteration``
-(doubling step, addition step, line products), so the output equals K1's
-word for word — the tool's own check — and ptxas's registers, stack and
-spills of the one-iteration kernel stand beside K1's.
+last step writes conj(f). The step runs ``miller_iteration`` on one
+thread a lane (fp.cuh's tower: the design K1 had before it moved to a
+warp a check, csrc/f12_group.cuh) with K1's line formulas (doubling step,
+addition step, line products), so the output equals K1's word for word —
+the tool's own check — and ptxas's registers, stack and spills of the
+one-iteration kernel stand beside K1's.
 
 The inputs are the tool's: 8 messages signed with one key, broadcast over
 B lanes, made with the port's ``crypto`` and packed by
